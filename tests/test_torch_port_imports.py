@@ -1,0 +1,45 @@
+"""The port stands alone: no module of video_fingerprint_tpu_torch imports jax,
+the JAX package, cv2 or av at import time, and chip_smoke.py refuses to run
+without a card."""
+
+import subprocess
+import sys
+
+import pytest
+
+from tests.conftest import REPO_ROOT
+
+# cv2 and av are blocked: the port must import (and bucket clips) on a
+# machine without OpenCV or PyAV; only decoding needs them.
+_IMPORT_ALL = """
+import pkgutil, sys
+sys.modules["cv2"] = sys.modules["av"] = None
+import video_fingerprint_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    __import__(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "video_fingerprint_tpu"))
+print(len(names), bad)
+assert len(names) >= 15, names
+assert not bad, bad
+from video_fingerprint_tpu_torch.data.preprocess import bucket_for_length
+assert bucket_for_length(100, (32, 64, 128, 500)) == 128
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_needs_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

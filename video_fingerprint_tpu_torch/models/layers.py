@@ -1,0 +1,152 @@
+"""Eval-mode layers of the attention fingerprint model.
+
+Submodules are named after the upstream reference's state_dict keys
+(reference model.py:74-179; the key table is utils/torch_compat.py), so a
+reference `.pth` loads with a strict `load_state_dict`. Sequences are
+(B, T, C) as in the JAX package; frames enter the spatial encoder as NCHW
+views of channels-last memory, the layout cuDNN takes directly.
+
+Convs, projections and the MLP are cuDNN/cuBLAS calls; the attention itself
+is the hand-written kernel in ops/attention.py.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from video_fingerprint_tpu_torch.ops.attention import multihead_attention
+
+PE_MAX_LEN = 10000  # reference model.py:80 registers a 10000-row table
+
+
+@lru_cache(maxsize=8)
+def _sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model)
+    )
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """Adds the sinusoidal table to (B, T, C); keeps the reference's
+    persistent buffer `pe` of shape (1, 10000, C). Row t of the table does
+    not depend on its length, so slicing it equals the JAX package's
+    per-length `positional_encoding`."""
+
+    def __init__(self, d_model: int, max_len: int = PE_MAX_LEN):
+        super().__init__()
+        self.register_buffer(
+            "pe", torch.from_numpy(_sinusoidal_table(max_len, d_model).copy())[None])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[:, : x.shape[1]].to(x.dtype)
+
+
+def _bn_or_identity(bn: nn.Module, fused: bool) -> nn.Module:
+    return nn.Identity() if fused else bn
+
+
+class SpatialEncoder(nn.Module):
+    """4x stride-2 conv (+BN) + ReLU, global mean, Linear. (N, 3, H, W) -> (N, out).
+
+    fused=True drops the BatchNorms: their eval affine is folded into the
+    conv weights by models/fuse.py.
+    """
+
+    def __init__(self, out_dim: int = 128, fused: bool = False):
+        super().__init__()
+        layers = []
+        in_ch = 3
+        for ch, k, p in [(32, 5, 2), (64, 3, 1), (128, 3, 1), (256, 3, 1)]:
+            layers += [
+                nn.Conv2d(in_ch, ch, k, stride=2, padding=p),
+                _bn_or_identity(nn.BatchNorm2d(ch), fused),
+                nn.ReLU(),
+            ]
+            in_ch = ch
+        layers += [nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(in_ch, out_dim)]
+        self.encoder = nn.Sequential(*layers)  # indices 0..14 as in the reference
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """nn.MultiheadAttention(batch_first=True)'s parameters and eval forward,
+    with an optional (B, T) key-padding mask; the attention runs in the
+    hand-written kernel (ops/attention.py)."""
+
+    def __init__(self, dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        B, T, C = x.shape
+        H = self.num_heads
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        # (B, T, 3, H, D) -> three (B, H, T, D) views of the one projection
+        q, k, v = qkv.view(B, T, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+        out = multihead_attention(q, k, v, mask=mask)
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, C))
+
+
+class TemporalAttentionBlock(nn.Module):
+    """Pre-LN MHA + residual; pre-LN 1x1-conv MLP (exact GELU) + residual."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 4):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = MultiHeadSelfAttention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.conv1 = nn.Conv1d(dim, dim * mlp_ratio, 1)
+        self.conv2 = nn.Conv1d(dim * mlp_ratio, dim, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        x = x + self.attn(self.norm1(x), mask=mask)
+        # 1x1 Conv1d on (B, T, C) is a pointwise linear layer
+        h = F.linear(self.norm2(x), self.conv1.weight[:, :, 0], self.conv1.bias)
+        h = F.linear(F.gelu(h), self.conv2.weight[:, :, 0], self.conv2.bias)
+        return x + h
+
+
+class TemporalConvBlock(nn.Module):
+    """Parallel grouped Conv1d (+BN) + ReLU branches, concatenated on channels.
+
+    (B, T, C) -> (B, T, C). Each branch maps C -> C / len(kernel_sizes) with
+    groups = C / len(kernel_sizes) and `k // 2` padding.
+    """
+
+    def __init__(self, dim: int, kernel_sizes: Sequence[int] = (3, 5, 7, 11),
+                 fused: bool = False):
+        super().__init__()
+        n = len(kernel_sizes)
+        if dim % n != 0:
+            raise ValueError(f"len(kernel_sizes)={n} must divide dim={dim}")
+        branch = dim // n
+        self.convs = nn.ModuleList(
+            nn.Sequential(
+                nn.Conv1d(dim, branch, k, padding=k // 2, groups=branch),
+                _bn_or_identity(nn.BatchNorm1d(branch), fused),
+                nn.ReLU(),
+            )
+            for k in kernel_sizes
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xt = x.transpose(1, 2)
+        return torch.cat([conv(xt) for conv in self.convs], dim=1).transpose(1, 2)

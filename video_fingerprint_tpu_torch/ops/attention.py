@@ -1,0 +1,144 @@
+"""Fused masked attention for the temporal attention blocks.
+
+softmax(q k^T / sqrt(D) + key bias) v over many small instances: 8 heads of
+D = 32 per video, T <= 500 frames, 4 blocks per forward. On a CUDA tensor
+the wrappers launch the hand-written kernel in `csrc/attention.cu`; on a CPU
+tensor they run `_attention_torch`, the plain version of the same function.
+Nothing falls back: a CUDA tensor the kernel cannot take raises.
+
+Semantics follow video_fingerprint_tpu/ops/attention.py: scores, bias and
+softmax in f32, the bias is the finite finfo(f32).min / 2 for a masked key
+(so a fully masked row averages v instead of giving NaN), p is cast to v's
+dtype before the PV product, which accumulates in f32, and the output takes
+q's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+HEAD_DIM = 32
+MASKED_BIAS = torch.finfo(torch.float32).min / 2
+
+# Kernel launches since the last reset; chip_smoke.py reads it to show that
+# the scan went through the kernel.
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _key_bias(mask: Optional[torch.Tensor], shape, device) -> torch.Tensor:
+    if mask is None:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return torch.where(mask.to(device=device, dtype=torch.bool),
+                       torch.tensor(0.0, device=device),
+                       torch.tensor(MASKED_BIAS, device=device))
+
+
+def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Plain version: (..., T, D) q/k/v and a (..., T) f32 key bias that
+    broadcasts over the leading dims. Mirrors `_attention_jnp`."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s + bias.unsqueeze(-2)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from video_fingerprint_tpu_torch.ops import _build
+
+        lib = _build.load("attention")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.vfp_attention_forward.argtypes = (
+            [ptr] * 5 + [i32] * 4 + [i64] * 12 + [ptr])
+        lib.vfp_attention_forward.restype = i32
+        lib.vfp_attention_max_t.argtypes = []
+        lib.vfp_attention_max_t.restype = i32
+        lib.vfp_error_string.argtypes = [i32]
+        lib.vfp_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the kernel on (B, H, T, D) views; mask is (B, T) or None.
+
+    q, k and v may be strided views (the head dimension contiguous); the
+    output is allocated as (B, T, H, D) and returned as its (B, H, T, D)
+    view, so the caller's merge of the heads is free."""
+    global launches
+    B, H, T, D = q.shape
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device: "
+                             f"{tuple(x.shape)} {x.dtype} {x.device} vs "
+                             f"{tuple(q.shape)} {q.dtype} {q.device}")
+    if D != HEAD_DIM:
+        raise ValueError(f"head dim must be {HEAD_DIM}, got {D}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous")
+    lib = _library()
+    if T > lib.vfp_attention_max_t():
+        raise ValueError(f"attention kernel takes T <= {lib.vfp_attention_max_t()}, "
+                         f"got {T}")
+    if mask is not None:
+        if mask.shape != (B, T):
+            raise ValueError(f"mask must be {(B, T)}, got {tuple(mask.shape)}")
+        mask = mask.to(device=q.device, dtype=torch.bool).contiguous()
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vfp_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            B, H, T, _DTYPE_CODES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError("attention kernel launch failed: "
+                           + lib.vfp_error_string(err).decode())
+    launches += 1
+    return out
+
+
+def _check_device(q: torch.Tensor) -> None:
+    if q.device.type != "cpu":
+        raise RuntimeError(f"no attention kernel for device {q.device}")
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(QK^T/sqrt(D))V over (BH, T, D) instances.
+
+    mask: optional (BH, T) bool key-validity mask (False = padding).
+    """
+    if q.is_cuda:
+        return _attention_cuda(q[:, None], k[:, None], v[:, None],
+                               mask)[:, 0]
+    _check_device(q)
+    return _attention_torch(q, k, v, _key_bias(mask, q.shape[:2], q.device))
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, H, T, D) q/k/v + optional (B, T) key mask -> (B, H, T, D)."""
+    if q.is_cuda:
+        return _attention_cuda(q, k, v, mask)
+    _check_device(q)
+    B, _, T, _ = q.shape
+    bias = _key_bias(mask, (B, T), q.device)[:, None, :]
+    return _attention_torch(q, k, v, bias)

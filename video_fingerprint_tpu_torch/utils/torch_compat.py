@@ -1,0 +1,165 @@
+"""Reference state_dict <-> flax-layout variables, for the attention model.
+
+The port's models hold the upstream reference's state_dict layout. The JAX
+package and its `.ckpt` checkpoints hold flax variables ({'params',
+'batch_stats'} trees of numpy arrays). These two functions carry weights
+across, as pure layout changes (a copy of the tables in
+video_fingerprint_tpu/utils/torch_compat.py):
+
+  conv2d  torch (O,I,kh,kw)  <-> flax (kh,kw,I,O)
+  conv1d  torch (O,I/g,k)    <-> flax (k,I/g,O)
+  linear  torch (O,I)        <-> flax (I,O)
+  conv1d k=1 used as pointwise <-> linear
+  MHA in_proj_weight (3C,C)  <-> (C,3C)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+
+from video_fingerprint_tpu_torch.models.layers import PE_MAX_LEN, _sinusoidal_table
+
+_SPATIAL_INDICES = [(0, 1), (3, 4), (6, 7), (9, 10)]  # (conv, bn) in the Sequential
+
+
+def _t(w):
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _set(tree: Dict, path: str, value) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.asarray(value)
+
+
+def _get(tree, path: str) -> np.ndarray:
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return np.asarray(node)
+
+
+def attention_state_dict_to_variables(sd: Mapping[str, np.ndarray]) -> Dict:
+    """Reference VideoFingerprintAttention state_dict -> flax variables."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params: Dict = {}
+    stats: Dict = {}
+
+    def linear(torch_key, our_path):
+        _set(params, f"{our_path}/dense/kernel", _t(sd[f"{torch_key}.weight"]))
+        _set(params, f"{our_path}/dense/bias", sd[f"{torch_key}.bias"])
+
+    def bn(torch_key, our_path):
+        _set(params, f"{our_path}/scale", sd[f"{torch_key}.weight"])
+        _set(params, f"{our_path}/bias", sd[f"{torch_key}.bias"])
+        _set(stats, f"{our_path}/mean", sd[f"{torch_key}.running_mean"])
+        _set(stats, f"{our_path}/var", sd[f"{torch_key}.running_var"])
+
+    def pointwise(torch_key, our_path):
+        _set(params, f"{our_path}/dense/kernel", _t(sd[f"{torch_key}.weight"][:, :, 0]))
+        _set(params, f"{our_path}/dense/bias", sd[f"{torch_key}.bias"])
+
+    for i, (conv_idx, bn_idx) in enumerate(_SPATIAL_INDICES):
+        key = f"spatial_encoder.encoder.{conv_idx}"
+        _set(params, f"spatial_encoder/conv{i}/conv/kernel",
+             np.ascontiguousarray(np.transpose(sd[f"{key}.weight"], (2, 3, 1, 0))))
+        _set(params, f"spatial_encoder/conv{i}/conv/bias", sd[f"{key}.bias"])
+        bn(f"spatial_encoder.encoder.{bn_idx}", f"spatial_encoder/bn{i}")
+    linear("spatial_encoder.encoder.14", "spatial_encoder/proj")
+    linear("temporal_projection", "temporal_projection")
+
+    for b in range(2):
+        for j in range(4):
+            tk = f"temporal_conv_blocks.{b}.convs.{j}"
+            op = f"temporal_conv_blocks_{b}"
+            _set(params, f"{op}/conv{j}/conv/kernel",
+                 np.ascontiguousarray(np.transpose(sd[f"{tk}.0.weight"], (2, 1, 0))))
+            _set(params, f"{op}/conv{j}/conv/bias", sd[f"{tk}.0.bias"])
+            bn(f"{tk}.1", f"{op}/bn{j}")
+
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("attention_blocks.")})
+    for i in range(n_blocks):
+        tk = f"attention_blocks.{i}"
+        op = f"attention_blocks_{i}"
+        for norm in ("norm1", "norm2"):
+            _set(params, f"{op}/{norm}/scale", sd[f"{tk}.{norm}.weight"])
+            _set(params, f"{op}/{norm}/bias", sd[f"{tk}.{norm}.bias"])
+        _set(params, f"{op}/attn/in_proj_kernel", _t(sd[f"{tk}.attn.in_proj_weight"]))
+        _set(params, f"{op}/attn/in_proj_bias", sd[f"{tk}.attn.in_proj_bias"])
+        linear(f"{tk}.attn.out_proj", f"{op}/attn/out_proj")
+        pointwise(f"{tk}.conv1", f"{op}/conv1")
+        pointwise(f"{tk}.conv2", f"{op}/conv2")
+
+    pointwise("temporal_pool.0", "temporal_pool")
+    linear("final_projection.0", "final_projection_1")
+    linear("final_projection.3", "final_projection_2")
+    _set(params, "temperature", sd["temperature"])
+    return {"params": params, "batch_stats": stats}
+
+
+def attention_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
+    """Flax variables -> reference state_dict layout (strict-loadable into
+    the port's VideoFingerprintAttention and the reference model)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(our_path, torch_key):
+        sd[f"{torch_key}.weight"] = _t(_get(params, f"{our_path}/dense/kernel"))
+        sd[f"{torch_key}.bias"] = _get(params, f"{our_path}/dense/bias")
+
+    def bn(our_path, torch_key):
+        sd[f"{torch_key}.weight"] = _get(params, f"{our_path}/scale")
+        sd[f"{torch_key}.bias"] = _get(params, f"{our_path}/bias")
+        sd[f"{torch_key}.running_mean"] = _get(stats, f"{our_path}/mean")
+        sd[f"{torch_key}.running_var"] = _get(stats, f"{our_path}/var")
+        sd[f"{torch_key}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def pointwise(our_path, torch_key):
+        sd[f"{torch_key}.weight"] = _t(_get(params, f"{our_path}/dense/kernel"))[:, :, None]
+        sd[f"{torch_key}.bias"] = _get(params, f"{our_path}/dense/bias")
+
+    for i, (conv_idx, bn_idx) in enumerate(_SPATIAL_INDICES):
+        w = _get(params, f"spatial_encoder/conv{i}/conv/kernel")
+        sd[f"spatial_encoder.encoder.{conv_idx}.weight"] = np.ascontiguousarray(
+            np.transpose(w, (3, 2, 0, 1)))
+        sd[f"spatial_encoder.encoder.{conv_idx}.bias"] = _get(
+            params, f"spatial_encoder/conv{i}/conv/bias")
+        bn(f"spatial_encoder/bn{i}", f"spatial_encoder.encoder.{bn_idx}")
+    linear("spatial_encoder/proj", "spatial_encoder.encoder.14")
+    linear("temporal_projection", "temporal_projection")
+
+    for b in range(2):
+        for j in range(4):
+            op = f"temporal_conv_blocks_{b}"
+            tk = f"temporal_conv_blocks.{b}.convs.{j}"
+            w = _get(params, f"{op}/conv{j}/conv/kernel")  # (k, in/g, out)
+            sd[f"{tk}.0.weight"] = np.ascontiguousarray(np.transpose(w, (2, 1, 0)))
+            sd[f"{tk}.0.bias"] = _get(params, f"{op}/conv{j}/conv/bias")
+            bn(f"{op}/bn{j}", f"{tk}.1")
+
+    n_blocks = len([k for k in params if k.startswith("attention_blocks_")])
+    for i in range(n_blocks):
+        op = f"attention_blocks_{i}"
+        tk = f"attention_blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{tk}.{norm}.weight"] = _get(params, f"{op}/{norm}/scale")
+            sd[f"{tk}.{norm}.bias"] = _get(params, f"{op}/{norm}/bias")
+        sd[f"{tk}.attn.in_proj_weight"] = _t(_get(params, f"{op}/attn/in_proj_kernel"))
+        sd[f"{tk}.attn.in_proj_bias"] = _get(params, f"{op}/attn/in_proj_bias")
+        linear(f"{op}/attn/out_proj", f"{tk}.attn.out_proj")
+        pointwise(f"{op}/conv1", f"{tk}.conv1")
+        pointwise(f"{op}/conv2", f"{tk}.conv2")
+
+    pointwise("temporal_pool", "temporal_pool.0")
+    linear("final_projection_1", "final_projection.0")
+    linear("final_projection_2", "final_projection.3")
+    sd["temperature"] = _get(params, "temperature")
+
+    # the reference registers the sinusoidal table as a persistent buffer
+    temporal_dim = _get(params, "temporal_projection/dense/kernel").shape[1]
+    sd["pos_encoding.pe"] = _sinusoidal_table(PE_MAX_LEN, temporal_dim)[None].copy()
+    return sd
