@@ -17,7 +17,14 @@ Phases, each of which raises (exit code 1) on any failure:
      byte-identical copies, duplicate search through the direct and the top-k
      path, all checked against the port's CPU path; the kernel's launch count
      shows the scan went through it; videos/s at bucket 128;
-  4. the scan CLI on a synthetic mp4 corpus, on the card and on the CPU.
+  4. the scan CLI on a synthetic mp4 corpus, on the card and on the CPU;
+  5. the conv-block probe's kernel (csrc/conv3x3s2.cu, entry points
+     conv_parity and conv_strided, the 3x3 stride-2 64->128 conv of the
+     spatial encoder in bf16): held against its plain version and an f64
+     oracle at 16,384 and a ragged 200 frames, and at the scan model's own
+     encoder[6] (BN folded) against cuDNN's encoder[6:9] on 8,192 frames; the
+     probe (tools/convblock_probe.py) driven once with the launches counted;
+     kernel, plain version and cuDNN timed at 8,192 and 16,384 frames.
 
 The second-to-last line is {"kernels": [...]}, one entry per kernel of the
 path; the last line is {"ok": true, "device": {...}}. Needs no network.
@@ -55,28 +62,6 @@ def require(cond: bool, msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def _elapsed_ms(torch, fn, n: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
-def cuda_ms(torch, fn, window_ms: float = 100.0) -> float:
-    """Mean device time of fn() (CUDA events) over back-to-back calls that
-    fill at least `window_ms`, after a warm-up of a quarter of that."""
-    fn()
-    torch.cuda.synchronize()
-    estimate = _elapsed_ms(torch, fn, 3) / 3
-    iters = max(3, min(2000, int(window_ms / max(estimate, 1e-3))))
-    _elapsed_ms(torch, fn, max(1, iters // 4))
-    return _elapsed_ms(torch, fn, iters) / iters
 
 
 def attention_bound_ms(BH: int, T: int, dtype_name: str, mask_bytes: int):
@@ -127,6 +112,7 @@ def phase_attention(torch):
 
     from video_fingerprint_tpu_torch.ops import attention as attn
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -162,11 +148,11 @@ def phase_attention(torch):
                 err_f64 = (out.double() - ref).abs().max().item()
                 require(err_f64 <= TOLERANCE[dname], f"T={T}: err vs f64 {err_f64}")
 
-            kernel_ms = cuda_ms(torch, lambda: attn.multihead_attention(q, k, v, mask))
+            kernel_ms = cuda_ms(lambda: attn.multihead_attention(q, k, v, mask))
             with full_fp32():
-                plain_ms = cuda_ms(torch, lambda: attn._attention_torch(q, k, v, bias))
+                plain_ms = cuda_ms(lambda: attn._attention_torch(q, k, v, bias))
                 lib_mask = bias[:, :, None, :].to(dtype)
-                library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=lib_mask))
             bound_ms, bound_by = attention_bound_ms(BATCH * HEADS, T, dname,
                                                     mask.numel())
@@ -242,6 +228,7 @@ def phase_scan(torch, workdir: Path):
     from torch.utils.flop_counter import FlopCounterMode
 
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
 
     model_path = workdir / "model.pth"
     rng = np.random.default_rng(SEED)
@@ -321,9 +308,9 @@ def phase_scan(torch, workdir: Path):
                                                dtype=np.uint8)).cuda()
         mask = torch.ones((BATCH, T), dtype=torch.bool, device="cuda")
         with torch.inference_mode(), full_fp32():
-            total_ms = cuda_ms(torch, lambda: scanner.model.forward_flat(frames, BATCH, mask))
+            total_ms = cuda_ms(lambda: scanner.model.forward_flat(frames, BATCH, mask))
             x = frames.permute(0, 3, 1, 2).float() / 255.0
-            spatial_ms = cuda_ms(torch, lambda: scanner.model.spatial_encoder(x))
+            spatial_ms = cuda_ms(lambda: scanner.model.spatial_encoder(x))
         del frames, x
         # operations per video, counted by PyTorch on the CPU model (whose
         # attention is the plain version, so its matmuls are counted too)
@@ -378,6 +365,113 @@ def phase_cli(torch, workdir: Path, model_path: Path):
           "attention_launches": card_launches, "card_vs_cpu_min_cos": cos})
 
 
+def conv_bound_ms(n: int):
+    """Least time for one conv-block call on n frames: x (64, 16, 16, n) read
+    once, y (128, 8, 8, n) written once, w2d and b read once, all bf16, at
+    HBM rate, vs 2 * 128 * 576 * 64 * n operations at the bf16 peak."""
+    nbytes = 2 * (64 * 16 * 16 * n + 128 * 8 * 8 * n + 128 * 576 + 128)
+    flops = 2 * 128 * 576 * 64 * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_convblock(torch, model_path: Path):
+    """The conv-block probe's kernels (csrc/conv3x3s2.cu, both entry points):
+    held against the plain version and an f64 oracle on seeded inputs, then
+    at the scan model's own layer against cuDNN's encoder[6:9]; the probe
+    driven once (its launches counted); kernel, plain version and cuDNN
+    timed at 8,192 and 16,384 frames."""
+    import copy
+
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.ops import convblock as cb
+    from video_fingerprint_tpu_torch.tools import convblock_probe
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    def entry_points(x, w2d, b):
+        outs = {"conv_parity": cb.conv_parity(*cb.split_parity(x), w2d, b),
+                "conv_strided": cb.conv_strided(x, w2d, b)}
+        torch.cuda.synchronize()
+        require(torch.equal(outs["conv_parity"], outs["conv_strided"]),
+                "conv_parity and conv_strided differ")
+        return outs
+
+    # 1. seeded inputs at the probe's frame count and a ragged one; tolerances
+    # (ops/convblock.py): one bf16 ulp vs the plain version, half an ulp plus
+    # f32 summation error vs the f64 oracle
+    errs = {}
+    for n in (16384, 200):
+        x, w2d, b = convblock_probe.random_inputs(torch.device("cuda"), n, seed=SEED)
+        with full_fp32():
+            plain = cb._conv_torch(x, w2d, b)
+        oracle = cb.f64_oracle(x, w2d, b)
+        for name, out in entry_points(x, w2d, b).items():
+            require(out.shape == (128, 8, 8, n) and bool(torch.isfinite(out).all()),
+                    f"{name} N={n}: shape {tuple(out.shape)} or non-finite output")
+            err, ok = cb.compare(out, plain, cb.ONE_ULP)
+            require(ok, f"{name} N={n}: vs plain max abs {err}")
+            err64, ok64 = cb.compare(out, oracle, cb.VS_F64)
+            require(ok64, f"{name} N={n}: vs f64 max abs {err64}")
+            errs[(name, n)] = err
+            emit({"phase": "convblock", "check": "seeded", "kernel": name, "frames": n,
+                  "max_abs_err": err, "err_vs_f64": err64})
+        del x, plain, oracle
+
+    # 2. the scan model's encoder[6] (BN folded) on encoder[:6]'s bf16
+    # activations of 8,192 seeded frames; the reference is cuDNN running
+    # encoder[6:9] on the same bf16 operands in f32 (TF32 off), rounded once
+    with contextlib.redirect_stdout(io.StringIO()):
+        scanner = FingerprintScanner(str(model_path), device="cuda", batch_size=BATCH)
+    encoder = scanner.model.spatial_encoder.encoder
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = torch.randint(0, 256, (8192, 64, 64, 3), dtype=torch.uint8, device="cuda",
+                           generator=g)
+    layer = copy.deepcopy(encoder[6:9])
+    with torch.inference_mode(), full_fp32():
+        act = encoder[:6](frames.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+        w2d = cb.hwio_to_w2d(encoder[6].weight)
+        b = encoder[6].bias.to(torch.bfloat16).reshape(128, 1)
+        layer[0].weight.copy_(layer[0].weight.to(torch.bfloat16).float())
+        layer[0].bias.copy_(b.float().reshape(128))
+        ref = layer(act.float()).to(torch.bfloat16).permute(1, 2, 3, 0)
+        outs = entry_points(act.permute(1, 2, 3, 0).contiguous(), w2d, b)
+    live = float((ref > 0).float().mean())
+    require(live > 0.05, f"encoder[6:9] output is {live:.3f} nonzero")
+    for name, out in outs.items():
+        err, ok = cb.compare(out, ref, cb.ONE_ULP)
+        require(ok, f"{name} at the scan's encoder[6]: vs cuDNN max abs {err}")
+        emit({"phase": "convblock", "check": "scan_layer", "kernel": name, "frames": 8192,
+              "max_abs_err_vs_cudnn": err, "nonzero_share": live})
+    del scanner, frames, act, ref, outs, layer
+
+    # 3. the probe, the path these kernels serve: its launches are counted
+    cb.launches = dict.fromkeys(cb.launches, 0)
+    convblock_probe.main(["--frames", "16384", "--window-ms", "50"])
+    launches = dict(cb.launches)
+    require(all(c > 0 for c in launches.values()), f"probe launches {launches}")
+
+    # 4. times at one bucket-128 batch's layer (64 videos x 128 frames) and at
+    # the probe's frame count
+    times = {}
+    for n in (8192, 16384):
+        x, w2d, b = convblock_probe.random_inputs(torch.device("cuda"), n, seed=SEED)
+        legs = {r["leg"]: r["ms"] for r in convblock_probe.timed_legs(x, w2d, b, 100.0)}
+        with full_fp32():
+            plain_ms = cuda_ms(lambda: cb._conv_torch(x, w2d, b))
+        bound_ms, bound_by = conv_bound_ms(n)
+        for name, leg in (("conv_parity", "cuda_cyxf"), ("conv_strided", "cuda_strided")):
+            times[(name, n)] = {"ms": legs[leg], "plain_ms": plain_ms,
+                                "library_ms": legs["cudnn_nhwc"], "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+            emit({"phase": "convblock", "check": "time", "kernel": name, "frames": n,
+                  **times[(name, n)]})
+        del x
+    return {name: {"launches": launches[name], "max_abs_err": errs[(name, 16384)],
+                   **times[(name, 16384)]} for name in launches}
+
+
 def main() -> int:
     import torch
 
@@ -391,6 +485,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vfp_chip_smoke_") as tmp:
         launches, model_path = phase_scan(torch, Path(tmp))
         phase_cli(torch, Path(tmp), model_path)
+        conv = phase_convblock(torch, model_path)
     main_case = att[("float32", 128)]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi)
@@ -406,7 +501,15 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-    }]})
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "video_fingerprint_tpu_torch/csrc/conv3x3s2.cu",
+        "replaces": replaces,
+        **{key: conv[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")},
+    } for name, replaces in (("conv_parity", "tools/exp_pallas_convblock.py:97"),
+                             ("conv_strided", "tools/exp_pallas_convblock.py:74"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

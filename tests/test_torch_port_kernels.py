@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from video_fingerprint_tpu_torch.ops import attention as attn
+from video_fingerprint_tpu_torch.ops import convblock as cb
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 
@@ -63,3 +64,46 @@ def test_attention_kernel_flat_layout():
     ref = attn.multihead_attention(q, k, v, mask).reshape(B * H, T, D)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+def _conv_inputs(n, dtype=torch.bfloat16, frames=None):
+    """Seeded x (64, 16, 16, n), w2d (128, 576) and b (128, 1) on the card;
+    with `frames`, x is the first n frames of a (64, 16, 16, frames) tensor."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((64, 16, 16, frames or n)).astype(np.float32)
+    w2d = (rng.standard_normal((128, 576)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal((128, 1)) * 0.1).astype(np.float32)
+    x, w2d, b = (torch.from_numpy(a).cuda().to(dtype) for a in (x, w2d, b))
+    return x[..., :n], w2d, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,frames", [(256, None), (200, None), (203, None), (203, 256)],
+                         ids=["256", "200", "203_unaligned", "203_view"])
+def test_conv_kernels_match_plain(n, frames):
+    """Both entry points launch once each (their counts move by one), agree
+    with each other bit for bit and with the plain version within one bf16
+    ulp: a ragged frame count, rows not 16-byte aligned (203 frames), and a
+    view whose last 16-byte copy is partly past the end (203 of 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, w2d, b = _conv_inputs(n, frames=frames)
+    before = dict(cb.launches)
+    parity = cb.conv_parity(*cb.split_parity(x), w2d, b)
+    strided = cb.conv_strided(x, w2d, b)
+    torch.cuda.synchronize()
+    assert cb.launches == {k: c + 1 for k, c in before.items()}
+    with full_fp32():
+        plain = cb._conv_torch(x, w2d, b)
+    assert torch.equal(parity, strided)
+    err, ok = cb.compare(strided, plain, cb.ONE_ULP)
+    assert ok, err
+
+
+@pytest.mark.gpu
+def test_conv_kernel_refuses_float32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, w2d, b = _conv_inputs(16, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cb.conv_strided(x, w2d, b)

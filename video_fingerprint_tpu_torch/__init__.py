@@ -5,11 +5,13 @@ reference it is tested against. Layout mirrors the JAX package:
 
   - data/        decode + preprocess (host side, cv2 imported lazily)
   - models/      the attention model as nn.Modules, BN folding
-  - ops/         the hand-written CUDA attention kernel and exact top-k
+  - ops/         the hand-written CUDA kernels (attention, the conv-block
+                 probe's stride-2 conv) and exact top-k
   - training/    checkpoint loading (.ckpt msgpack reader, .pth)
   - inference/   scanner, duplicate grouping, JSON report
   - utils/       reference state_dict <-> flax-layout key tables
   - cli/         `python -m video_fingerprint_tpu_torch.cli.scan`
+  - tools/       the conv-block probe
   - csrc/        CUDA C++ sources, built with nvcc at first use
 
 Importing the package imports nothing heavy; entry points default to

@@ -1,1 +1,1 @@
-"""Kernels and device ops: the CUDA attention kernel and exact top-k."""
+"""Kernels and device ops: the CUDA attention and conv-block kernels, exact top-k."""
