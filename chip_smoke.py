@@ -9,14 +9,18 @@ Phases, each of which raises (exit code 1) on any failure:
      CUDA source of the port (one nvcc per source, all started together);
   2. hold the attention kernel (csrc/attention.cu) against its plain PyTorch
      version at the scan's shapes (64 videos x 8 heads, D = 32, every bucket
-     length T, float32 and bfloat16, ragged and fully masked rows), and time
-     it beside the plain version and F.scaled_dot_product_attention;
+     length T and T = 1000, float32 and bfloat16, ragged rows, a row whose
+     first 64 keys are masked, fully masked rows), and time it beside the
+     plain version and F.scaled_dot_product_attention: device time from CUDA
+     graph replay, and the time per call through the Python wrapper;
   3. the scan at full width: a seeded attention model written as a
      reference-layout .pth, FingerprintScanner(device="cuda", batch_size=64)
      fed ~200 seeded uint8 64x64 clips covering every bucket with planted
      byte-identical copies, duplicate search through the direct and the top-k
      path, all checked against the port's CPU path; the kernel's launch count
-     shows the scan went through it; videos/s at bucket 128;
+     shows the scan went through it; videos/s at bucket 128; then the same
+     weights under max_frames = 1000 (a checkpoint's config may name any
+     length), three clips of 600-1000 frames on the card against the CPU;
   4. the scan CLI on a synthetic mp4 corpus, on the card and on the CPU;
   5. the conv-block probe's kernel (csrc/conv3x3s2.cu, entry points
      conv_parity and conv_strided, the 3x3 stride-2 64->128 conv of the
@@ -49,6 +53,7 @@ BATCH = 64
 HEADS = 8
 HEAD_DIM = 32
 BUCKETS = (32, 64, 128, 256, 500)
+ATTENTION_T = BUCKETS + (1000,)  # and a length past 512 keys, where a checkpoint may go
 # Published H100 SXM peaks (NVIDIA data sheet, dense) at a 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -106,25 +111,45 @@ def phase_build():
               "spilling": spills})
 
 
+def _device_kernels(torch, fn):
+    """Names of the CUDA kernels one call of fn launches, as torch.profiler
+    sees them (diagnostic only: a profiler that fails is reported, not
+    raised)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - the names are informative, not a check
+        return {"profiler_error": repr(exc)}
+    return sorted({e.name for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+
+
 def phase_attention(torch):
-    """Kernel vs plain version at every bucket T, f32 and bf16."""
+    """Kernel vs plain version at every bucket T and T = 1000, f32 and bf16."""
     import torch.nn.functional as F
 
     from video_fingerprint_tpu_torch.ops import attention as attn
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
-    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for T in BUCKETS:
+        for T in ATTENTION_T:
             shape = (BATCH, HEADS, T, HEAD_DIM)
             q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
                        for _ in range(3))
             lengths = torch.randint(1, T + 1, (BATCH,), device="cuda", generator=g)
             lengths[0] = T
             mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+            if T > 64:  # the first key tile wholly masked, later keys valid
+                mask[1] = torch.arange(T, device="cuda") >= 64
             mask[-1] = False  # one instance with every key masked
             bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
 
@@ -147,19 +172,32 @@ def phase_attention(torch):
                 ref = torch.softmax(s, dim=-1) @ v.double()
                 err_f64 = (out.double() - ref).abs().max().item()
                 require(err_f64 <= TOLERANCE[dname], f"T={T}: err vs f64 {err_f64}")
+                del s, ref
 
-            kernel_ms = cuda_ms(lambda: attn.multihead_attention(q, k, v, mask))
+            err_leading = (out[1].float() - plain[1].float()).abs().max().item()
+            del plain
+
+            kernel = lambda: attn.multihead_attention(q, k, v, mask)
+            kernel_ms = graph_ms(kernel)
+            kernel_call_ms = cuda_ms(kernel)
+            lib_mask = bias[:, :, None, :].to(dtype)
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask)
             with full_fp32():
-                plain_ms = cuda_ms(lambda: attn._attention_torch(q, k, v, bias))
-                lib_mask = bias[:, :, None, :].to(dtype)
-                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=lib_mask))
+                plain_ms = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
+                library_ms = graph_ms(library)
+                library_call_ms = cuda_ms(library)
             bound_ms, bound_by = attention_bound_ms(BATCH * HEADS, T, dname,
                                                     mask.numel())
             row = {"phase": "attention", "dtype": dname, "T": T, "BH": BATCH * HEADS,
                    "max_abs_err": err, "err_uniform_row": err_uniform,
-                   "err_vs_f64": err_f64, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                   "err_leading_masked_row": err_leading, "err_vs_f64": err_f64,
+                   "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_call_ms": library_call_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            if T == 128:  # which kernels the yardstick runs (f32: tensor cores?)
+                with full_fp32():
+                    row["library_kernels"] = _device_kernels(torch, library)
             emit(row)
             results[(dname, T)] = row
     return results
@@ -220,6 +258,36 @@ def _seeded_clips(rng, n_per_bucket: int = 40, copies: int = 4):
 
 def _groups(groups):
     return sorted(sorted(item["path"] for item in g) for g in groups)
+
+
+def _scan_long(torch, workdir: Path, model_path: Path, rng):
+    """The seeded checkpoint with max_frames = 1000 in its config (the JAX
+    train CLI takes any --max_frames and writes it there): the scanner's last
+    bucket is then 1000 frames. Three clips of 600-1000 frames embedded on
+    the card in one partial batch (a fully masked padding row beside them)
+    and on the CPU; the kernel's launches are counted."""
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.ops import attention as attn
+
+    ckpt = torch.load(model_path)
+    ckpt["config"] = dict(ckpt["config"], max_frames=1000)
+    path = workdir / "model_max1000.pth"
+    torch.save(ckpt, path)
+    clips = [(f"long_{t}", _seeded_clip(rng, t)) for t in (600, 817, 1000)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = FingerprintScanner(str(path), device="cuda", batch_size=4)
+        cpu = FingerprintScanner(str(path), device="cpu", batch_size=len(clips))
+    require(card.buckets[-1] == 1000, f"buckets {card.buckets}")
+    attn.launches = 0
+    embs = card.embed_clips(clips)
+    torch.cuda.synchronize()
+    launches = attn.launches
+    require(launches == 4, f"max_frames=1000: {launches} kernel launches, not 4")
+    cpu_embs = cpu.embed_clips(clips)
+    cos = min(float(np.dot(embs[k], cpu_embs[k])) for k, _ in clips)
+    require(cos >= 0.9999, f"max_frames=1000: card vs CPU cosine {cos}")
+    return {"buckets": list(card.buckets), "frames": [c.shape[0] for _, c in clips],
+            "attention_launches": launches, "card_vs_cpu_min_cos": cos}
 
 
 def phase_scan(torch, workdir: Path):
@@ -290,6 +358,7 @@ def phase_scan(torch, workdir: Path):
     cpu_embs = cpu.embed_clips(few)
     cos = min(float(np.dot(embs[k], cpu_embs[k])) for k, _ in few)
     require(cos >= 0.9999, f"card vs CPU forward cosine {cos}")
+    long = _scan_long(torch, workdir, model_path, rng)
 
     # videos/s at bucket 128, B = 64: through the batching stage (host
     # staging, copies, forward, readback) and the forward alone on the card
@@ -326,7 +395,8 @@ def phase_scan(torch, workdir: Path):
           "attention_launches": launches, "warmup_s": warmup_s, "scan_s": scan_s,
           "threshold": threshold, "copy_min_sim": min(copy_sims),
           "other_max_sim": other_max, "groups": results, "card_vs_cpu_min_cos": cos,
-          "b128_stage_videos_per_s": stage_vps, "forward_b64": forward})
+          "b128_stage_videos_per_s": stage_vps, "forward_b64": forward,
+          "max_frames_1000": long})
     return launches, model_path
 
 

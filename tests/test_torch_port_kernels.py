@@ -16,39 +16,85 @@ from video_fingerprint_tpu_torch.ops import convblock as cb
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 
+ATTENTION_T = (1, 17, 32, 48, 64, 65, 127, 128, 129, 256, 500, 513, 1000)
+ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _mask(B, T):
+    """(B, T) key mask on the card: batch 0 unmasked, batch 1 a ragged tail,
+    batch 2 its first 64 keys masked and the rest valid (the online
+    softmax's rescale from a masked start; for T <= 64 only the last key is
+    valid), the last batch fully masked."""
+    mask = np.ones((B, T), bool)
+    mask[1, (2 * T) // 3:] = False
+    mask[2, :64] = False
+    mask[2, T - 1] = True
+    mask[-1] = False
+    return torch.from_numpy(mask).cuda()
+
+
 def _inputs(T, dtype, B=8, H=8, D=32):
-    """Seeded (B, H, T, D) q/k/v on the card and a (B, T) mask: batch 0
-    unmasked, batch 1 a ragged tail, the last batch fully masked."""
+    """Seeded (B, H, T, D) q/k/v on the card and `_mask`'s (B, T) mask."""
     rng = np.random.default_rng(T)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, H, T, D)).astype(np.float32))
                .cuda().to(dtype) for _ in range(3))
-    mask = np.ones((B, T), bool)
-    mask[1, (2 * T) // 3:] = False
-    mask[-1] = False
-    return q, k, v, torch.from_numpy(mask).cuda()
+    return q, k, v, _mask(B, T)
+
+
+def _check_attention(q, k, v, mask, tol):
+    """One launch (the count moves by one), finite, the plain version's
+    values, and the mean of v for the fully masked last batch."""
+    before = attn.launches
+    out = attn.multihead_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attn.launches == before + 1
+    bias = attn._key_bias(mask, mask.shape, mask.device)[:, None, :]
+    with full_fp32():
+        plain = attn._attention_torch(q, k, v, bias)
+    T = q.shape[2]
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.isfinite(out).all(), T
+    assert (out.float() - plain.float()).abs().max().item() <= tol, T
+    uniform = v[-1].float().mean(dim=1, keepdim=True)
+    assert (out[-1].float() - uniform).abs().max().item() <= tol, T
+    return out
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_attention_kernel_matches_plain(dtype, tol):
-    """At every scan bucket length: the kernel launches (its count moves),
-    stays finite, matches the plain version, and gives a fully masked row
-    the mean of v."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain(dtype):
+    """Every T from one frame past two key tiles of 64 (ragged tails, the
+    scan's buckets, and T > 512): the kernel launches, stays finite, matches
+    the plain version, and gives a fully masked row the mean of v."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    for T in (32, 48, 64, 128, 256, 500):
-        q, k, v, mask = _inputs(T, dtype)
-        before = attn.launches
-        out = attn.multihead_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        assert attn.launches == before + 1
-        bias = attn._key_bias(mask, mask.shape, mask.device)[:, None, :]
-        with full_fp32():
-            plain = attn._attention_torch(q, k, v, bias)
-        assert torch.isfinite(out).all()
-        assert (out.float() - plain.float()).abs().max().item() <= tol, T
-        uniform = v[-1].float().mean(dim=1, keepdim=True)
-        assert (out[-1].float() - uniform).abs().max().item() <= tol, T
+    for T in ATTENTION_T:
+        _check_attention(*_inputs(T, dtype), ATTENTION_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_strided_views(dtype):
+    """The model's own views of one fused qkv projection (no copies; o comes
+    back in (B, T, H, D) order), and q/k/v at a storage offset of one
+    element, whose rows are not 16-byte aligned (the element-wise loader)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    B, H, D = 8, 8, 32
+    for T in (17, 128, 500, 1000):
+        rng = np.random.default_rng(T)
+        qkv = torch.from_numpy(rng.normal(size=(B, T, 3 * H * D)).astype(np.float32))
+        qkv = qkv.cuda().to(dtype)
+        q, k, v = qkv.view(B, T, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+        out = _check_attention(q, k, v, _mask(B, T), ATTENTION_TOL[dtype])
+        assert out.transpose(1, 2).is_contiguous()
+
+        n = B * H * T * D
+        flat = torch.from_numpy(rng.normal(size=3 * n + 1).astype(np.float32))
+        flat = flat.cuda().to(dtype)
+        q, k, v = (flat[1 + i * n: 1 + (i + 1) * n].view(B, H, T, D) for i in range(3))
+        assert q.data_ptr() % 16 != 0
+        _check_attention(q, k, v, _mask(B, T), ATTENTION_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -56,7 +102,7 @@ def test_attention_kernel_flat_layout():
     """fused_attention's (BH, T, D) entry point with a (BH, T) mask."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    q, k, v, mask = _inputs(48, torch.float32, B=2)
+    q, k, v, mask = _inputs(48, torch.float32, B=4)
     B, H, T, D = q.shape
     flat = lambda x: x.reshape(B * H, T, D)
     mflat = mask.repeat_interleave(H, dim=0)

@@ -1,7 +1,8 @@
 """Fused masked attention for the temporal attention blocks.
 
 softmax(q k^T / sqrt(D) + key bias) v over many small instances: 8 heads of
-D = 32 per video, T <= 500 frames, 4 blocks per forward. On a CUDA tensor
+D = 32 per video, T frames (any T >= 1; the scan's buckets end at its
+`max_frames`), 4 blocks per forward. On a CUDA tensor
 the wrappers launch the hand-written kernel in `csrc/attention.cu`; on a CPU
 tensor they run `_attention_torch`, the plain version of the same function.
 Nothing falls back: a CUDA tensor the kernel cannot take raises.
@@ -61,8 +62,6 @@ def _library():
         lib.vfp_attention_forward.argtypes = (
             [ptr] * 5 + [i32] * 4 + [i64] * 12 + [ptr])
         lib.vfp_attention_forward.restype = i32
-        lib.vfp_attention_max_t.argtypes = []
-        lib.vfp_attention_max_t.restype = i32
         lib.vfp_error_string.argtypes = [i32]
         lib.vfp_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -91,9 +90,6 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous")
     lib = _library()
-    if T > lib.vfp_attention_max_t():
-        raise ValueError(f"attention kernel takes T <= {lib.vfp_attention_max_t()}, "
-                         f"got {T}")
     if mask is not None:
         if mask.shape != (B, T):
             raise ValueError(f"mask must be {(B, T)}, got {tuple(mask.shape)}")
