@@ -25,10 +25,12 @@ Phases, each of which raises (exit code 1) on any failure:
   5. the conv-block probe's kernel (csrc/conv3x3s2.cu, entry points
      conv_parity and conv_strided, the 3x3 stride-2 64->128 conv of the
      spatial encoder in bf16): held against its plain version and an f64
-     oracle at 16,384 and a ragged 200 frames, and at the scan model's own
-     encoder[6] (BN folded) against cuDNN's encoder[6:9] on 8,192 frames; the
-     probe (tools/convblock_probe.py) driven once with the launches counted;
-     kernel, plain version and cuDNN timed at 8,192 and 16,384 frames.
+     oracle at 16,384, 8,192, 200, 203 (rows not 16-byte aligned), 203 of
+     256, 1 and 16 * 132 + 5 frames, and at the scan model's own encoder[6]
+     (BN folded) against cuDNN's encoder[6:9] on 8,192 frames; the probe
+     (tools/convblock_probe.py) driven once with the launches counted;
+     kernel, plain version and cuDNN timed at 8,192 and 16,384 frames
+     (device time by CUDA-graph replay, and per call).
 
 The second-to-last line is {"kernels": [...]}, one entry per kernel of the
 path; the last line is {"ok": true, "device": {...}}. Needs no network.
@@ -40,6 +42,7 @@ import contextlib
 import hashlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -106,9 +109,15 @@ def phase_build():
                      for prev, w in zip(line.split(), line.split()[1:]) if prev == "Used"]
         spills = [line.strip() for line in log.splitlines()
                   if "spill" in line and " 0 bytes spill stores" not in line]
-        emit({"phase": "build", "source": f"csrc/{name}.cu", "seconds": seconds,
-              "kernels": len(registers), "max_registers": max(registers, default=None),
-              "spilling": spills})
+        static_smem = [int(v) for v in re.findall(r"(\d+) bytes smem", log)]
+        row = {"phase": "build", "source": f"csrc/{name}.cu", "seconds": seconds,
+               "kernels": len(registers), "max_registers": max(registers, default=None),
+               "spilling": spills, "max_static_smem_bytes": max(static_smem, default=0)}
+        if name == "conv3x3s2":  # its shared memory is dynamic: ask the library
+            from video_fingerprint_tpu_torch.ops import convblock as cb
+
+            row["dynamic_smem_bytes"] = cb.smem_bytes()
+        emit(row)
 
 
 def _device_kernels(torch, fn):
@@ -451,14 +460,15 @@ def phase_convblock(torch, model_path: Path):
     held against the plain version and an f64 oracle on seeded inputs, then
     at the scan model's own layer against cuDNN's encoder[6:9]; the probe
     driven once (its launches counted); kernel, plain version and cuDNN
-    timed at 8,192 and 16,384 frames."""
+    timed at 8,192 and 16,384 frames: device time (CUDA-graph replay) as
+    `ms`, and `call_ms` per call through the wrapper."""
     import copy
 
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
     from video_fingerprint_tpu_torch.ops import convblock as cb
     from video_fingerprint_tpu_torch.tools import convblock_probe
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
-    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     def entry_points(x, w2d, b):
         outs = {"conv_parity": cb.conv_parity(*cb.split_parity(x), w2d, b),
@@ -468,12 +478,18 @@ def phase_convblock(torch, model_path: Path):
                 "conv_parity and conv_strided differ")
         return outs
 
-    # 1. seeded inputs at the probe's frame count and a ragged one; tolerances
-    # (ops/convblock.py): one bf16 ulp vs the plain version, half an ulp plus
-    # f32 summation error vs the f64 oracle
+    # 1. seeded inputs: the probe's frame count, one bucket-128 batch's, a
+    # ragged one, rows not 16-byte aligned (203 frames, one frame: the
+    # kernel's element-wise loader), the first 203 frames of 256, and 133
+    # tiles of 16 on 132 SMs (a partial second tile in the persistent walk);
+    # tolerances (ops/convblock.py): one bf16 ulp vs the plain version, half
+    # an ulp plus f32 summation error vs the f64 oracle
     errs = {}
-    for n in (16384, 200):
-        x, w2d, b = convblock_probe.random_inputs(torch.device("cuda"), n, seed=SEED)
+    cases = ((16384, None), (8192, None), (200, None), (203, None), (203, 256), (1, None),
+             (16 * 132 + 5, None))
+    for n, of in cases:
+        x, w2d, b = convblock_probe.random_inputs(torch.device("cuda"), of or n, seed=SEED)
+        x = x[..., :n]
         with full_fp32():
             plain = cb._conv_torch(x, w2d, b)
         oracle = cb.f64_oracle(x, w2d, b)
@@ -486,7 +502,7 @@ def phase_convblock(torch, model_path: Path):
             require(ok64, f"{name} N={n}: vs f64 max abs {err64}")
             errs[(name, n)] = err
             emit({"phase": "convblock", "check": "seeded", "kernel": name, "frames": n,
-                  "max_abs_err": err, "err_vs_f64": err64})
+                  "of_frames": of or n, "max_abs_err": err, "err_vs_f64": err64})
         del x, plain, oracle
 
     # 2. the scan model's encoder[6] (BN folded) on encoder[:6]'s bf16
@@ -523,21 +539,26 @@ def phase_convblock(torch, model_path: Path):
     require(all(c > 0 for c in launches.values()), f"probe launches {launches}")
 
     # 4. times at one bucket-128 batch's layer (64 videos x 128 frames) and at
-    # the probe's frame count
+    # the probe's frame count: device time (CUDA-graph replay) and per call
+    # through the wrapper, for the kernel and for cuDNN (the probe's leg)
     times = {}
     for n in (8192, 16384):
         x, w2d, b = convblock_probe.random_inputs(torch.device("cuda"), n, seed=SEED)
-        legs = {r["leg"]: r["ms"] for r in convblock_probe.timed_legs(x, w2d, b, 100.0)}
+        xe, xo = (t.contiguous() for t in cb.split_parity(x))
+        library = convblock_probe.cudnn_leg(x, w2d, b)
         with full_fp32():
-            plain_ms = cuda_ms(lambda: cb._conv_torch(x, w2d, b))
+            plain_ms = graph_ms(lambda: cb._conv_torch(x, w2d, b))
+        library_ms, library_call_ms = graph_ms(library), cuda_ms(library)
         bound_ms, bound_by = conv_bound_ms(n)
-        for name, leg in (("conv_parity", "cuda_cyxf"), ("conv_strided", "cuda_strided")):
-            times[(name, n)] = {"ms": legs[leg], "plain_ms": plain_ms,
-                                "library_ms": legs["cudnn_nhwc"], "bound_ms": bound_ms,
+        for name, fn in (("conv_parity", lambda: cb.conv_parity(xe, xo, w2d, b)),
+                         ("conv_strided", lambda: cb.conv_strided(x, w2d, b))):
+            times[(name, n)] = {"ms": graph_ms(fn), "call_ms": cuda_ms(fn),
+                                "plain_ms": plain_ms, "library_ms": library_ms,
+                                "library_call_ms": library_call_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by}
             emit({"phase": "convblock", "check": "time", "kernel": name, "frames": n,
                   **times[(name, n)]})
-        del x
+        del x, xe, xo
     return {name: {"launches": launches[name], "max_abs_err": errs[(name, 16384)],
                    **times[(name, 16384)]} for name in launches}
 

@@ -124,13 +124,17 @@ def _conv_inputs(n, dtype=torch.bfloat16, frames=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,frames", [(256, None), (200, None), (203, None), (203, 256)],
-                         ids=["256", "200", "203_unaligned", "203_view"])
+@pytest.mark.parametrize("n,frames", [(256, None), (200, None), (203, None), (203, 256),
+                                      (1, None), (16 * 132 + 5, None), (16384, None)],
+                         ids=["256", "200", "203_unaligned", "203_view", "1",
+                              "partial_walk", "16384"])
 def test_conv_kernels_match_plain(n, frames):
     """Both entry points launch once each (their counts move by one), agree
     with each other bit for bit and with the plain version within one bf16
-    ulp: a ragged frame count, rows not 16-byte aligned (203 frames), and a
-    view whose last 16-byte copy is partly past the end (203 of 256)."""
+    ulp: a ragged frame count, rows not 16-byte aligned (203 frames, and one
+    frame), a view whose last 16-byte copy is partly past the end (203 of
+    256), 133 tiles on 132 SMs (one block walks a second, partial tile), and
+    the probe's 16,384 frames."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     x, w2d, b = _conv_inputs(n, frames=frames)
@@ -144,6 +148,42 @@ def test_conv_kernels_match_plain(n, frames):
     assert torch.equal(parity, strided)
     err, ok = cb.compare(strided, plain, cb.ONE_ULP)
     assert ok, err
+
+
+@pytest.mark.gpu
+def test_conv_kernel_one_tile_operand_layout():
+    """One tile of 16 frames, w2d nonzero in one tap (dy, dx) at a time: each
+    tap's wgmma operands (w2d's 128B-swizzled rows, the input's window of 8
+    column slots) on their own, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, w2d, b = _conv_inputs(16)
+    for tap in range(9):
+        w_tap = torch.zeros_like(w2d)
+        w_tap[:, 64 * tap:64 * (tap + 1)] = w2d[:, 64 * tap:64 * (tap + 1)]
+        parity = cb.conv_parity(*cb.split_parity(x), w_tap, b)
+        strided = cb.conv_strided(x, w_tap, b)
+        torch.cuda.synchronize()
+        with full_fp32():
+            plain = cb._conv_torch(x, w_tap, b)
+        assert torch.equal(parity, strided), tap
+        err, ok = cb.compare(strided, plain, cb.ONE_ULP)
+        assert ok, (tap, err)
+
+
+@pytest.mark.gpu
+def test_conv_kernel_refuses_strided_frames():
+    """Frames must be the contiguous (last) dimension: a view with a frame
+    stride of 2 raises instead of launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, w2d, b = _conv_inputs(64)
+    before = dict(cb.launches)
+    with pytest.raises(ValueError, match="stride 1"):
+        cb.conv_strided(x[..., ::2], w2d, b)
+    with pytest.raises(ValueError, match="stride 1"):
+        cb.conv_parity(*cb.split_parity(x[..., ::2]), w2d, b)
+    assert cb.launches == before
 
 
 @pytest.mark.gpu

@@ -18,33 +18,67 @@
 // What bounds it on an H100: per frame 32 KB are read and 16 KB written,
 // against 2 * 128 * 576 * 64 = 9.44 MFLOP. At N = 16,384 frames that is
 // 805 MB (0.240 ms at 3.35 TB/s) against 155 GFLOP (0.156 ms at 989 TFLOP/s
-// in bf16 on the tensor cores): bounded by bytes. On the CUDA cores in f32 the
-// work alone would take 2.3 ms, so the products run on the tensor cores.
+// in bf16): bounded by bytes, with the products close behind, so the copies
+// and the products have to overlap.
 //
-// Design (simple first; wgmma, TMA and deeper pipelines are later work):
-//   - an implicit GEMM: M = 128 output channels (the rows of w2d), K = 576,
-//     the columns are (x', frame) pairs. A block owns one output row y' and a
-//     tile of 16 frames: a 128 x 128 output tile, 8 warps of 64 x 32 each,
-//     multiplied with mma.sync m16n8k16 (bf16 in, f32 accumulate);
-//   - K is walked in 6 stages of (dy, 32 input channels). A stage holds the
-//     16 input columns of row 2y' + dy - 1 for the tile's frames in shared
-//     memory as [column][channel][frame], frames contiguous as in memory, plus
-//     a zero column for x = -1, and the matching 128 x 96 slice of w2d (three
-//     dx taps). The three taps read the same staged row at column 2x' + dx - 1,
-//     so the stride-2 subsampling costs nothing: it is an address. ldmatrix
-//     .trans turns the frame-contiguous rows into the mma's B fragments;
-//   - two stages in flight: cp.async fills one buffer while the tensor cores
-//     work on the other, and at most 128 registers a thread let two blocks
-//     share an SM, so one block's loads overlap the other's products;
-//   - inputs whose rows are not 16-byte aligned (a frame count that is not a
-//     multiple of 8) take a plain element-wise loader into the same layout;
-//     frames past N are loaded as zeros and not stored;
-//   - the parity mode differs only in where the loader reads input column c:
-//     xe[c / 2] when c is even, xo[(c - 1) / 2] when it is odd;
-//   - a stage whose input row is the zero padding (y' = 0, dy = 0) is skipped;
-//   - the 8 blocks of one frame tile are adjacent in the grid, so the input
-//     row shared by output rows y' and y' + 1 is read from L2 the second time.
+// Design (an H100 80GB HBM3 at 700 W runs it in 0.46-0.48 ms at N = 16,384,
+// device time in chip_smoke.py, against 0.81-0.85 ms for the earlier
+// two-stage mma.sync design of this file). The choices below were timed
+// side by side in builds not kept in the repository, so no number of theirs
+// is given here:
+//   - persistent blocks: one block of 384 threads per SM walks the frame
+//     tiles (16 frames each) with a stride of the grid, so neighbouring
+//     tiles run at the same time on neighbouring SMs and share DRAM pages
+//     and L2 lines (a walk over contiguous ranges of tiles was much slower).
+//     A block computes all 8 output rows of its tile, so each input row is
+//     staged once per tile, and the next tile's loads run under this tile's
+//     products;
+//   - w2d resident in shared memory: 9 TMA boxes of one tap each (128 rows of
+//     64 channels = 128 B, the 128B swizzle), loaded once per block. It is
+//     the K-major A operand of wgmma: M = 64 output channels per consumer
+//     warpgroup, two consumer warpgroups;
+//   - input stages in the Pallas kernel's parity form: a stage is one input
+//     row and 32 of its channels, as 17 column slots [xe 0..7 | zero | xo
+//     0..7]; a slot is [channel][16 frames], 32 B a channel (32B swizzle).
+//     Tap dx reads the 8 slots from slot 8 (dx = 0: zero, xo[x' - 1]), 0
+//     (dx = 1: xe[x']) or 9 (dx = 2: xo[x']): the MN-major B operand with
+//     N = 8 columns x 16 frames, its stride between columns one slot (the
+//     descriptor's leading byte offset). One m64n128k16 covers a whole
+//     output row. The zero slot is written once;
+//   - a ring of 4 stages with full/empty mbarriers. The producer warpgroup
+//     fills a stage with 16-byte cp.async copies (zero-filled past N) and
+//     arrives on its full barrier as they land; the consumer warpgroups
+//     wait, run wgmma, keep one group in flight and release the stage
+//     before. Both modes fill the same slots from other addresses (parity:
+//     xe[c] and xo[c]; full: x[2c] and x[2c + 1]), so they are bit for bit
+//     equal. Inputs not 16-byte aligned (a frame count that is not a
+//     multiple of 8, a storage offset) are staged element by element into
+//     the same slots. TMA boxes for the input (a 4-D map per parity tensor,
+//     a 5-D map over x) were built and timed: their rows are 16 frames
+//     (32 B), and they ran no faster than cp.async, which serves both cases
+//     with one loader and needs no tensor map per call;
+//   - each input row feeds two output rows (2y' + 1 is row dy = 2 of y' and
+//     dy = 0 of y' + 1), so the consumers keep two accumulators of 64 x 128
+//     (128 f32 registers a thread). The producer gives up registers
+//     (setmaxnreg 56; 224 for the consumers) and each wgmma descriptor is
+//     made just before its product: made all at once they spilled;
+//   - epilogue: + bias in f32, ReLU (NaN passes, as jnp.maximum and
+//     torch.relu let it), one rounding to bf16. A 4 x 4 shuffle transpose
+//     in each quad gives every lane 8 consecutive frames, so two lanes write
+//     one 32-byte (co, y', x') row of the tile whole, as streaming
+//     (evict-first) stores, so that the output does not push the input out
+//     of L2 (with plain stores the kernel was markedly slower). It
+//     cannot run under the next stage's products: ptxas then serializes
+//     every wgmma.
+//
+// Shared memory per block (dynamic, 1024-byte aligned): w2d 147,456 B + 4
+// stages x 17,408 B (17 slots x 32 channels x 32 B) = 217,088 B, 72 B of
+// mbarriers, 1,024 B of alignment slack: 218,184 of the 232,448 B a block
+// may have. So the output is not staged in shared memory for a TMA store (a
+// 128 x 8 x 16 tile is 32 KB), and one CTA holds all of w2d (no 2-CTA
+// cluster).
 
+#include <cuda.h>  // CUtensorMap and the encoder's types; no link to libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,245 +89,465 @@ constexpr int kCin = 64;
 constexpr int kCout = 128;
 constexpr int kHwIn = 16;
 constexpr int kHwOut = 8;
-constexpr int kK = 9 * kCin;          // 576, the row length of w2d
-constexpr int kFrames = 16;           // frames per block
-constexpr int kCiStage = 32;          // input channels per stage
-constexpr int kThreads = 256;
-
-// Shared memory, in bf16 elements. The row paddings put the 8 rows that one
-// ldmatrix phase reads on 8 different groups of 4 banks.
-constexpr int kWsRow = 3 * kCiStage + 8;      // 104: w slice row (3 dx x 32 ci)
-constexpr int kWsSize = kCout * kWsRow;
-constexpr int kXsRow = kFrames + 8;           // 24: one channel's 16 frames
-constexpr int kXsCol = kCiStage * kXsRow;     // 768: one input column
-constexpr int kXsSize = (kHwIn + 1) * kXsCol; // column 0 is x = -1 (zeros)
-constexpr int kStageSize = kWsSize + kXsSize;
-constexpr size_t kSmemBytes = sizeof(uint16_t) * 2 * kStageSize;  // 106,496
+constexpr int kK = 9 * kCin;                        // 576, the row length of w2d
+constexpr int kFrames = 16;                         // frames per tile
+constexpr int kChunk = 32;                          // input channels per stage
+constexpr int kChunks = kCin / kChunk;
+constexpr int kZeroSlot = 8;                        // the column x = -1
+constexpr int kSlotBytes = kChunk * kFrames * 2;    // 1,024
+constexpr int kStageBytes = 17 * kSlotBytes;        // 17,408
+constexpr int kStages = 4;
+constexpr int kTapBytes = kCout * kCin * 2;         // 16,384: one tap of w2d
+constexpr int kWBytes = 9 * kTapBytes;              // 147,456
+constexpr int kXOff = kWBytes;
+constexpr int kBarOff = kXOff + kStages * kStageBytes;
+constexpr int kBarBytes = 8 * (2 * kStages + 1);
+constexpr size_t kSmemBytes = kBarOff + kBarBytes + 1024;  // 218,184
+constexpr int kConsumerThreads = 256;               // two warpgroups
+constexpr int kProducerThreads = 128;               // and one producer warpgroup
+constexpr int kThreads = kConsumerThreads + kProducerThreads;
 
 struct Params {
   const uint16_t* xa;  // x (full mode) or xe (parity mode)
   const uint16_t* xb;  // xo (parity mode), unused in full mode
-  const uint16_t* w;   // (128, 576), contiguous, 16-byte aligned
   const uint16_t* b;   // (128,), contiguous
   uint16_t* out;       // (128, 8, 8, N), contiguous
   long long n;         // frames
   long long a_sc, a_sy, a_sx;  // element strides of xa (frame stride 1)
   long long b_sc, b_sy, b_sx;  // element strides of xb
+  int tiles;           // ceil(n / 16)
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // 16 bytes global -> shared; bytes past src_bytes are filled with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// The barrier's arrival of this thread once its earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle (1: 128B, 3: 32B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
+}
+
+// A: one tap of w2d, rows of 64 channels (128 B), 8-row groups 1,024 B apart.
+__device__ __forceinline__ uint64_t desc_a(uint32_t addr) { return make_desc(addr, 16, 1024, 1); }
+
+// B, MN-major: 16 frames (32 B) per channel row, 8-channel groups 256 B
+// apart, output columns one slot apart.
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return make_desc(addr, kSlotBytes, 256, 3);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint16_t f32_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// Address of input element (ci, iy, column c, frame f); c in 0..15.
-template <bool kParity>
-__device__ __forceinline__ const uint16_t* x_ptr(const Params& p, int ci, int iy, int c,
-                                                 long long f) {
-  if (kParity && (c & 1))
-    return p.xb + ci * p.b_sc + iy * p.b_sy + (c >> 1) * p.b_sx + f;
-  const int col = kParity ? (c >> 1) : c;
-  return p.xa + ci * p.a_sc + iy * p.a_sy + col * p.a_sx + f;
-}
-
-// Stage (dy, cc) into one buffer: the w2d slice, and input row iy for
-// channels 32 cc .. 32 cc + 31 at columns 1..16 of the x tile.
-template <bool kParity, bool kAligned>
-__device__ __forceinline__ void load_stage(const Params& p, uint16_t* buf, int dy, int cc,
-                                           int iy, long long f0) {
-  uint16_t* ws = buf;
-  uint16_t* xs = buf + kWsSize;
-  const int tid = threadIdx.x;
-  // w2d[co, (3 dy + dx) 64 + 32 cc + j] -> ws[co][32 dx + j], 16 B a copy
-  for (int i = tid; i < kCout * 3 * 4; i += kThreads) {
-    const int v = i % 4;
-    const int dx = (i / 4) % 3;
-    const int co = i / 12;
-    cp_async16(ws + co * kWsRow + dx * kCiStage + v * 8,
-               p.w + co * kK + (3 * dy + dx) * kCin + cc * kCiStage + v * 8, 16);
-  }
-  if (kAligned) {
-    // x[ci, iy, c, f0 .. f0 + 15] -> xs[c + 1][ci][0 .. 15], two copies of
-    // 8 frames; a copy past the last frame is zero-filled
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-    for (int k = 0; k < (kHwIn * kCiStage * 2) / kThreads; ++k) {
-      const int i = tid + k * kThreads;
-      const int h = i & 1;
-      const int ci = (i >> 1) % kCiStage;
-      const int c = i / (2 * kCiStage);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// A (64 x 16) is K-major, B (16 x 128) MN-major;
+// d (64 x 128, f32) = A * B + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The products of one stage (one input row, channel chunk c) as input row dy
+// of the output row accumulated in d: taps dx = 0, 1, 2, each two k16 steps.
+// `w` is this warpgroup's 64 rows of tap 0. `fresh` starts the sum anew.
+__device__ __forceinline__ void stage_products(float (&d)[64], uint32_t w, uint32_t stage, int dy,
+                                               int c, bool fresh) {
+  uint64_t a = desc_a(w + 3 * dy * kTapBytes + c * kChunk * 2);
+  uint64_t b = desc_b(stage);
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int slot = dx == 0 ? kZeroSlot : (dx == 1 ? 0 : kZeroSlot + 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      // each descriptor is made just before its product, not all up front
+      asm volatile("" : "+l"(a), "+l"(b));
+      wgmma_m64n128k16(d, a + ((dx * kTapBytes + kk * 32) >> 4),
+                       b + ((slot * kSlotBytes + kk * 16 * 32) >> 4),
+                       fresh && dx == 0 && kk == 0 ? 0 : 1);
+    }
+  }
+}
+
+// Address of input element (ci, iy, column col, frame f); col in 0..15.
+template <bool kParity>
+__device__ __forceinline__ const uint16_t* x_ptr(const Params& p, int ci, int iy, int col,
+                                                 long long f) {
+  if (kParity && (col & 1))
+    return p.xb + ci * p.b_sc + iy * p.b_sy + (col >> 1) * p.b_sx + f;
+  const int c = kParity ? (col >> 1) : col;
+  return p.xa + ci * p.a_sc + iy * p.a_sy + c * p.a_sx + f;
+}
+
+// Byte offset of (slot, channel, frame) in a stage: a slot is [32 channels]
+// [16 frames] of 32 B, with the 32B swizzle (16-byte halves of channel rows
+// 4..7 of every 8 swapped), as the B descriptor reads it.
+__device__ __forceinline__ uint32_t slot_offset(int slot, int ci, int f) {
+  const uint32_t off = slot * kSlotBytes + ci * 32 + f * 2;
+  return off ^ (((off >> 7) & 1) << 4);
+}
+
+// Stage (input row iy, channels 32 c ..) for frames f0 .. f0 + 15, by the
+// producer warpgroup: input column 2j into slot j, column 2j + 1 into slot
+// 9 + j. Aligned rows go as 16-byte cp.async copies (zero-filled past N),
+// others element by element.
+template <bool kParity, bool kAligned>
+__device__ __forceinline__ void load_stage(const Params& p, uint8_t* stage, int iy, int c,
+                                           long long f0, int ptid) {
+  if (kAligned) {
+#pragma unroll
+    for (int k = 0; k < 16 * kChunk * 2 / kProducerThreads; ++k) {
+      const int i = ptid + kProducerThreads * k;
+      const int h = i & 1;  // frames 8h .. 8h + 7
+      const int ci = (i >> 1) % kChunk;
+      const int j = i / (2 * kChunk);
+      const int col = j < 8 ? 2 * j : 2 * (j - 8) + 1;
       const long long f = f0 + 8 * h;
       const long long valid = p.n - f;
       const int bytes = valid >= 8 ? 16 : (valid > 0 ? (int)valid * 2 : 0);
-      const uint16_t* src = x_ptr<kParity>(p, cc * kCiStage + ci, iy, c, bytes ? f : 0);
-      cp_async16(xs + (c + 1) * kXsCol + ci * kXsRow + 8 * h, src, bytes);
+      cp_async16(smem_u32(stage) + slot_offset(j < 8 ? j : j + 1, ci, 8 * h),
+                 x_ptr<kParity>(p, c * kChunk + ci, iy, col, bytes ? f : 0), bytes);
     }
   } else {
-    for (int i = tid; i < kHwIn * kCiStage * kFrames; i += kThreads) {
-      const int f = i % kFrames;
-      const int ci = (i / kFrames) % kCiStage;
-      const int c = i / (kFrames * kCiStage);
-      xs[(c + 1) * kXsCol + ci * kXsRow + f] =
-          f0 + f < p.n ? *x_ptr<kParity>(p, cc * kCiStage + ci, iy, c, f0 + f) : 0;
+    for (int e = ptid; e < 16 * kChunk * kFrames; e += kProducerThreads) {
+      const int f = e % kFrames;
+      const int ci = (e / kFrames) % kChunk;
+      const int j = e / (kFrames * kChunk);
+      const int col = j < 8 ? 2 * j : 2 * (j - 8) + 1;
+      *reinterpret_cast<uint16_t*>(stage + slot_offset(j < 8 ? j : j + 1, ci, f)) =
+          f0 + f < p.n ? *x_ptr<kParity>(p, c * kChunk + ci, iy, col, f0 + f) : uint16_t(0);
     }
   }
 }
 
-template <bool kParity, bool kAligned>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3s2_kernel(Params p) {
-  extern __shared__ __align__(16) uint16_t smem[];
+// relu(v + bias) rounded once to bf16 (NaN passes, as jnp.maximum and
+// torch.relu let it), two of them packed low first.
+__device__ __forceinline__ uint32_t pack_relu(float v0, float v1, float bias) {
+  v0 += bias;
+  v1 += bias;
+  const uint32_t h0 = __bfloat16_as_ushort(__float2bfloat16_rn(v0 < 0.0f ? 0.0f : v0));
+  const uint32_t h1 = __bfloat16_as_ushort(__float2bfloat16_rn(v1 < 0.0f ? 0.0f : v1));
+  return h0 | (h1 << 16);
+}
 
-  const int yo = blockIdx.x % kHwOut;
-  const long long f0 = (long long)(blockIdx.x / kHwOut) * kFrames;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // rows wm * 64 .. + 63
-  const int wn = warp % 4;  // output columns x' = 2 wn, 2 wn + 1
-
-  // the zero column (input x = -1) of both buffers is never overwritten
-  for (int i = tid; i < kXsCol; i += kThreads) {
-    smem[kWsSize + i] = 0;
-    smem[kStageSize + kWsSize + i] = 0;
+// A 4 x 4 transpose of words across the 4 lanes of a quad: lane t's a[k]
+// comes back as lane k's a[t].
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
+  uint32_t b[4] = {a[0], a[1], a[2], a[3]};
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const int m = t ^ k;  // the partner lane, and the word each sends the other
+    uint32_t v = m == 0 ? a[0] : (m == 1 ? a[1] : (m == 2 ? a[2] : a[3]));
+    v = __shfl_xor_sync(0xffffffffu, v, k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = m == i ? v : b[i];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = b[i];
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
-
-  // stages s = (dy - dy0) * 2 + cc; the padding row (y' = 0, dy = 0) is skipped
-  const int dy0 = yo == 0 ? 1 : 0;
-  const int stages = (3 - dy0) * (kCin / kCiStage);
-  load_stage<kParity, kAligned>(p, smem, dy0, 0, 2 * yo + dy0 - 1, f0);
-  cp_async_commit();
-
-  // per-lane ldmatrix offsets: A rows (lane % 16), k half (lane / 16); B
-  // channel rows (lane % 16), frame half (lane / 16)
-  const int a_off = (wm * 64 + (lane & 15)) * kWsRow + (lane >> 4) * 8;
-  const int b_off = (lane & 15) * kXsRow + (lane >> 4) * 8;
-
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages) {
-      const int dy = dy0 + (s + 1) / 2;
-      load_stage<kParity, kAligned>(p, smem + ((s + 1) & 1) * kStageSize, dy,
-                                    (s + 1) % 2, 2 * yo + dy - 1, f0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const uint16_t* ws = smem + (s & 1) * kStageSize;
-    const uint16_t* xs = ws + kWsSize;
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-#pragma unroll
-      for (int kk = 0; kk < kCiStage / 16; ++kk) {
-        uint32_t a[4][4];
-        uint32_t b[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4(a[mt], ws + a_off + mt * 16 * kWsRow + dx * kCiStage + kk * 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          // output column x' = 2 wn + j reads input column 2x' + dx - 1,
-          // stored at index 2x' + dx; b[j] holds frames 0-7 and 8-15
-          const int col = 2 * (2 * wn + j) + dx;
-          ldmatrix_x4_trans(b[j], xs + col * kXsCol + kk * 16 * kXsRow + b_off);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[mt][nt], a[mt], b[nt / 2][(nt % 2) * 2],
-                     b[nt / 2][(nt % 2) * 2 + 1]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: + bias in f32, ReLU (NaN passes, as jnp.maximum and torch.relu
-  // let it), round to bf16, store the frames that exist
+// + bias, ReLU, one rounding to bf16, and the store of the frames that exist.
+// Accumulator element 4j + 2h + e is row r0 + 8h, column 8j + 2(lane % 4) + e,
+// and column c is output column x' = c / 16, frame f0 + c % 16. A quad holds
+// 4 columns j of 8 frames as 4 x 4 words; transposed, each lane holds the 8
+// frames (16 B) of one column j = 4g + lane % 4, and two lanes write one
+// 32-byte (co, y', x') row of the tile.
+__device__ __forceinline__ void epilogue(float (&d)[64], const Params& p, int yo, long long f0,
+                                         int r0, float bias0, float bias1) {
+  fence_acc(d);
+  const int t = threadIdx.x % 4;
   const long long n = p.n;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const bool pairs = (n % 2) == 0;  // two neighbouring frames as one 4-byte store
+  const long long f = f0 + (t % 2) * 8;
+  const bool whole = n % 8 == 0 && f + 8 <= n;  // 16-byte aligned and all inside
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int h = 0; h < 2; ++h) {
+    const long long co = r0 + 8 * h;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int co = wm * 64 + mt * 16 + g + half * 8;
-      const float bias = __uint_as_float(static_cast<uint32_t>(p.b[co]) << 16);
+    for (int g = 0; g < 4; ++g) {
+      uint32_t a[4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int xo = 2 * wn + nt / 2;
-        uint16_t* row = p.out + ((long long)co * kHwOut * kHwOut + yo * kHwOut + xo) * n;
-        const long long f = f0 + (nt % 2) * 8 + 2 * t;
-        float v0 = acc[mt][nt][2 * half] + bias;
-        float v1 = acc[mt][nt][2 * half + 1] + bias;
-        const uint16_t h0 = f32_to_bf16_bits(v0 < 0.0f ? 0.0f : v0);
-        const uint16_t h1 = f32_to_bf16_bits(v1 < 0.0f ? 0.0f : v1);
-        if (pairs && f + 1 < n) {
-          *reinterpret_cast<uint32_t*>(row + f) = h0 | (static_cast<uint32_t>(h1) << 16);
-        } else {
-          if (f < n) row[f] = h0;
-          if (f + 1 < n) row[f + 1] = h1;
-        }
+      for (int k = 0; k < 4; ++k)
+        a[k] = pack_relu(d[4 * (4 * g + k) + 2 * h], d[4 * (4 * g + k) + 2 * h + 1],
+                         h ? bias1 : bias0);
+      quad_transpose(a, t);
+      const int xo = 2 * g + t / 2;
+      uint16_t* dst = p.out + (co * kHwOut * kHwOut + yo * kHwOut + xo) * n + f;
+      if (whole) {
+        __stcs(reinterpret_cast<uint4*>(dst), make_uint4(a[0], a[1], a[2], a[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (f + i < n) dst[i] = static_cast<uint16_t>(a[i / 2] >> (16 * (i % 2)));
       }
     }
   }
 }
 
 template <bool kParity, bool kAligned>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3s2_kernel(const __grid_constant__ CUtensorMap wmap, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t w_s = smem_u32(smem);
+  const uint32_t x_s = w_s + kXOff;
+  const uint32_t full0 = w_s + kBarOff;
+  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t wbar = empty0 + 8 * kStages;
+  const int tid = threadIdx.x;
+
+  // the zero slot of every stage, never overwritten
+  for (int i = tid; i < kStages * kSlotBytes / 16; i += kThreads) {
+    const int s = i / (kSlotBytes / 16);
+    const int j = i % (kSlotBytes / 16);
+    reinterpret_cast<uint4*>(smem + kXOff + s * kStageBytes + kZeroSlot * kSlotBytes)[j] =
+        make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, kProducerThreads);  // one arrival per producer thread
+      mbar_init(empty0 + 8 * s, kConsumerThreads / 32);  // one arrival per consumer warp
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // zeros -> wgmma
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    // producer warpgroup: w2d once, then the ring; it gives registers to
+    // the consumers (168 a thread at launch, 56 and 224 after)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int ptid = tid - kConsumerThreads;
+    if (ptid == 0) {
+      mbar_expect_tx(wbar, kWBytes);
+      for (int t = 0; t < 9; ++t) tma_load_2d(w_s + t * kTapBytes, &wmap, t * kCin, 0, wbar);
+    }
+    uint32_t s = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const long long f0 = (long long)tile * kFrames;
+      for (int iy = 0; iy < kHwIn; ++iy) {
+        for (int c = 0; c < kChunks; ++c, ++s) {
+          const uint32_t slot = s % kStages;
+          const uint32_t round = s / kStages;
+          if (round > 0) mbar_wait(empty0 + 8 * slot, (round - 1) & 1);
+          load_stage<kParity, kAligned>(p, smem + kXOff + slot * kStageBytes, iy, c, f0, ptid);
+          if (kAligned) {
+            cp_async_arrive(full0 + 8 * slot);
+          } else {
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // stores -> wgmma
+            mbar_arrive(full0 + 8 * slot);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: rows r0 and r0 + 8 of output channels 64 wg .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int wg = tid / 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const float bias0 = __uint_as_float(static_cast<uint32_t>(p.b[r0]) << 16);
+  const float bias1 = __uint_as_float(static_cast<uint32_t>(p.b[r0 + 8]) << 16);
+  const uint32_t w_wg = w_s + wg * 64 * kCin * 2;
+  float acc_a[64], acc_b[64];
+  uint32_t s = 0;     // stages consumed
+  uint32_t held = kStages;  // the slot whose products may still run; kStages: none
+  mbar_wait(wbar, 0);
+
+  // Wait for stage s and issue `products` on it; once the previous stage's
+  // products are done (one group may stay in flight), release its slot.
+#define VFP_STAGE(products)                                                 \
+  {                                                                         \
+    const uint32_t slot = s % kStages;                                      \
+    mbar_wait(full0 + 8 * slot, (s / kStages) & 1);                         \
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");          \
+    const uint32_t stage = x_s + slot * kStageBytes;                        \
+    uint32_t w = w_wg;  /* not loop-invariant: descriptors are not hoisted */ \
+    asm volatile("" : "+r"(w));                                             \
+    wgmma_fence();                                                          \
+    products;                                                               \
+    wgmma_commit();                                                         \
+    wgmma_wait<1>();                                                        \
+    if (held < kStages && lane == 0) mbar_arrive(empty0 + 8 * held);       \
+    held = slot;                                                            \
+    ++s;                                                                    \
+  }
+  // all products done: the accumulators may be read, the held slot is free
+#define VFP_DRAIN()                                                         \
+  {                                                                         \
+    wgmma_wait<0>();                                                        \
+    if (lane == 0) mbar_arrive(empty0 + 8 * held);                          \
+    held = kStages;                                                         \
+  }
+
+  // Output rows 2q (acc_a) and 2q + 1 (acc_b) from input rows 4q .. 4q + 3;
+  // row 4q + 3 also starts output row 2q + 2 unless `last`. (An epilogue
+  // cannot run under the next stage's products: ptxas then serializes every
+  // wgmma, since the accumulators would be read inside a pipeline stage.)
+#define VFP_QUAD(q, last)                                                   \
+  {                                                                         \
+    _Pragma("unroll") for (int c = 0; c < kChunks; ++c) /* dy 1 of 2q */    \
+      VFP_STAGE(stage_products(acc_a, w, stage, 1, c, q == 0 && c == 0));   \
+    _Pragma("unroll") for (int c = 0; c < kChunks; ++c) /* dy 2, dy 0 */    \
+      VFP_STAGE(stage_products(acc_a, w, stage, 2, c, false);               \
+                stage_products(acc_b, w, stage, 0, c, c == 0));             \
+    VFP_DRAIN();                                                            \
+    epilogue(acc_a, p, 2 * (q), f0, r0, bias0, bias1);                      \
+    _Pragma("unroll") for (int c = 0; c < kChunks; ++c) /* dy 1 of 2q+1 */  \
+      VFP_STAGE(stage_products(acc_b, w, stage, 1, c, false));              \
+    _Pragma("unroll") for (int c = 0; c < kChunks; ++c) /* dy 2, dy 0 */    \
+      VFP_STAGE(stage_products(acc_b, w, stage, 2, c, false);               \
+                if (!(last)) stage_products(acc_a, w, stage, 0, c, c == 0)); \
+    VFP_DRAIN();                                                            \
+    epilogue(acc_b, p, 2 * (q) + 1, f0, r0, bias0, bias1);                  \
+  }
+
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const long long f0 = (long long)tile * kFrames;
+#pragma unroll 1
+    for (int q = 0; q < kHwOut / 2 - 1; ++q) VFP_QUAD(q, false);
+    VFP_QUAD(kHwOut / 2 - 1, true);
+  }
+#undef VFP_QUAD
+#undef VFP_STAGE
+#undef VFP_DRAIN
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The tensor map of w2d (128 rows of 576), in boxes of one tap: 128 rows of
+// 64 channels (128 B, the 128B swizzle). Returns 0 on success.
+int encode_w2d(CUtensorMap* map, const void* w2d) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return 1;
+  const cuuint64_t dims[2] = {kK, kCout};
+  const cuuint64_t row_bytes[1] = {kK * 2};
+  const cuuint32_t box[2] = {kCin, kCout};
+  const cuuint32_t ones[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w2d), dims, row_bytes,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS;
+}
+
+template <bool kParity, bool kAligned>
+cudaError_t launch(const CUtensorMap& wmap, const Params& p, cudaStream_t stream) {
   auto kernel = conv3x3s2_kernel<kParity, kAligned>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBytes);
   if (err != cudaSuccess) return err;
-  const long long tiles = (p.n + kFrames - 1) / kFrames;
-  kernel<<<(unsigned)(tiles * kHwOut), kThreads, kSmemBytes, stream>>>(p);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(wmap, p);
   return cudaGetLastError();
 }
 
@@ -316,22 +570,27 @@ int vfp_conv3x3s2_forward(const void* x_a, const void* x_b, const void* w2d,
                           long long a_sc, long long a_sy, long long a_sx,
                           long long b_sc, long long b_sy, long long b_sx,
                           void* stream) {
-  if (n < 1 || (n + kFrames - 1) / kFrames * kHwOut > 0x7fffffffLL ||
-      (parity && x_b == nullptr) || reinterpret_cast<uintptr_t>(w2d) % 16 != 0)
+  if (n < 1 || n > 0x7fffffffLL - kFrames || (parity && x_b == nullptr) ||
+      reinterpret_cast<uintptr_t>(w2d) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const uint16_t*>(x_a), static_cast<const uint16_t*>(x_b),
-           static_cast<const uint16_t*>(w2d), static_cast<const uint16_t*>(bias),
-           static_cast<uint16_t*>(out), n, a_sc, a_sy, a_sx, b_sc, b_sy, b_sx};
+           static_cast<const uint16_t*>(bias), static_cast<uint16_t*>(out), n,
+           a_sc, a_sy, a_sx, b_sc, b_sy, b_sx, (int)((n + kFrames - 1) / kFrames)};
   const bool aligned = aligned16(x_a, a_sc, a_sy, a_sx) &&
                        (!parity || aligned16(x_b, b_sc, b_sy, b_sx));
+  CUtensorMap wmap;
+  if (encode_w2d(&wmap, w2d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (parity)
-    err = aligned ? launch<true, true>(p, s) : launch<true, false>(p, s);
+    err = aligned ? launch<true, true>(wmap, p, s) : launch<true, false>(wmap, p, s);
   else
-    err = aligned ? launch<false, true>(p, s) : launch<false, false>(p, s);
+    err = aligned ? launch<false, true>(wmap, p, s) : launch<false, false>(wmap, p, s);
   return (int)err;
 }
+
+// Dynamic shared memory a block of the kernel takes, in bytes.
+int vfp_conv3x3s2_smem_bytes() { return (int)kSmemBytes; }
 
 const char* vfp_conv3x3s2_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -123,8 +123,15 @@ def _library():
         lib.vfp_conv3x3s2_forward.restype = i32
         lib.vfp_conv3x3s2_error_string.argtypes = [i32]
         lib.vfp_conv3x3s2_error_string.restype = ctypes.c_char_p
+        lib.vfp_conv3x3s2_smem_bytes.argtypes = []
+        lib.vfp_conv3x3s2_smem_bytes.restype = i32
         _lib = lib
     return _lib
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory one block of the kernel takes, in bytes."""
+    return int(_library().vfp_conv3x3s2_smem_bytes())
 
 
 def _conv_cuda(name: str, xs, w2d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -90,14 +90,19 @@ def random_inputs(device: torch.device, n: int, seed: int = 1):
     return x.to(torch.bfloat16), w2d.to(torch.bfloat16), b.to(torch.bfloat16)
 
 
+def cudnn_leg(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor):
+    """The library's call for the layer: F.conv2d on a channels-last bf16
+    (N, 64, 16, 16) copy of x, + bias + ReLU."""
+    x_nhwc = x.permute(3, 0, 1, 2).contiguous(memory_format=torch.channels_last)
+    w_oihw = w2d.reshape(cb.COUT, 3, 3, cb.CIN).permute(0, 3, 1, 2).contiguous()
+    return lambda: torch.relu_(F.conv2d(x_nhwc, w_oihw, b.reshape(cb.COUT), stride=2, padding=1))
+
+
 def timed_legs(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor, window_ms: float):
     """The library, K2 and K3 on the same inputs, on the card."""
     xe, xo = (t.contiguous() for t in cb.split_parity(x))
-    x_nhwc = x.permute(3, 0, 1, 2).contiguous(memory_format=torch.channels_last)
-    w_oihw = w2d.reshape(cb.COUT, 3, 3, cb.CIN).permute(0, 3, 1, 2).contiguous()
     legs = (
-        ("cudnn_nhwc", lambda: torch.relu_(
-            F.conv2d(x_nhwc, w_oihw, b.reshape(cb.COUT), stride=2, padding=1))),
+        ("cudnn_nhwc", cudnn_leg(x, w2d, b)),
         ("cuda_cyxf", lambda: cb.conv_parity(xe, xo, w2d, b)),
         ("cuda_strided", lambda: cb.conv_strided(x, w2d, b)),
     )
