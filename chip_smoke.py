@@ -30,7 +30,27 @@ Phases, each of which raises (exit code 1) on any failure:
      (BN folded) against cuDNN's encoder[6:9] on 8,192 frames; the probe
      (tools/convblock_probe.py) driven once with the launches counted;
      kernel, plain version and cuDNN timed at 8,192 and 16,384 frames
-     (device time by CUDA-graph replay, and per call).
+     (device time by CUDA-graph replay, and per call);
+  6. the 3D-CNN scan at full width (frame_stride 32, clip_length 128,
+     428,370 parameters): a seeded model written as a reference-layout
+     .pth, FingerprintScanner(device="cuda", batch_size=64) fed ~200
+     seeded uint8 windows (full 128-frame windows, short clips of 10-127
+     frames, 3-window videos, planted byte-identical copies), checked
+     against the port's CPU path (norms, cosine, direct and top-k groups);
+     windows/s through the batching stage, the forward and each conv block
+     at B = 64, GFLOP per window; then the scan CLI with that checkpoint on
+     an mp4 corpus of 320-frame videos, on the card and on the CPU;
+  7. the fingerprint index: the CLI's --index / --against flow (library A,
+     library B merged in, a re-scan of A that decodes nothing, B against the
+     corpus) on the card and on the CPU in f32 and bf16 storage;
+     FingerprintIndex(device="cuda") over 1,000,000 x 256 seeded rows with
+     256 planted near copies, 4,096 queries at k = 20 in f32 and bf16
+     storage against a float64 oracle; topk_cosine self-search at
+     100,000 x 256; their times beside the bound.
+
+Neither of the last two paths has a hand-written kernel (cuDNN runs the 3D
+convs, cuBLAS the similarity matmuls, as XLA does in the JAX package); their
+runs hold every kernel's launch count at zero.
 
 The second-to-last line is {"kernels": [...]}, one entry per kernel of the
 path; the last line is {"ok": true, "device": {...}}. Needs no network.
@@ -563,6 +583,443 @@ def phase_convblock(torch, model_path: Path):
                    **times[(name, 16384)]} for name in launches}
 
 
+CLIP_LENGTH = 128
+STRIDE_3D = 32
+INDEX_ROWS = 1_000_000
+INDEX_QUERIES = 4096
+SELF_SEARCH_ROWS = 100_000
+EMB_DIM = 256
+CARD = "cuda"  # the device of the phases below
+
+
+def _zero_launches():
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.ops import convblock as cb
+
+    attn.launches = 0
+    cb.launches = dict.fromkeys(cb.launches, 0)
+
+
+def _launches():
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.ops import convblock as cb
+
+    return {"attention": attn.launches, **cb.launches}
+
+
+def _write_model_3d(torch, path: Path, rng) -> None:
+    """A seeded full-width 3D model saved as a reference-layout checkpoint,
+    its BatchNorm statistics measured on seeded 128-frame clips (as
+    _write_model does for the attention model)."""
+    from video_fingerprint_tpu_torch.models import create_model
+
+    torch.manual_seed(SEED)
+    model = create_model("3d", frame_stride=STRIDE_3D)
+    params = sum(p.numel() for p in model.parameters())
+    require(params == 428_370, f"3D model has {params} parameters, not 428,370")
+    for module in model.modules():
+        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+            module.reset_running_stats()
+            module.momentum = None
+    calib = torch.from_numpy(np.stack([_seeded_clip(rng, CLIP_LENGTH) for _ in range(8)]))
+    with torch.no_grad():
+        model.train()(calib)
+    config = {"model_type": "3d", "frame_size": 64, "clip_length": CLIP_LENGTH,
+              "frame_stride": STRIDE_3D, "embedding_dim": EMB_DIM}
+    torch.save({"model_state_dict": model.state_dict(), "config": config}, path)
+
+
+def _seeded_videos_3d(rng, scanner):
+    """Seeded 3D scan input: {video: [window clips]} of 64 full 128-frame
+    videos, 64 short ones of 10-127 frames and 24 long ones of 260-519
+    frames cut by the scanner's window plan (3 windows each), with one
+    byte-identical copy each of two videos of every kind."""
+    videos = {}
+    for kind, lengths in (("full", [CLIP_LENGTH] * 64),
+                          ("short", rng.integers(10, CLIP_LENGTH, 64)),
+                          ("long", rng.integers(260, 520, 24))):
+        for j, t in enumerate(lengths):
+            clip = _seeded_clip(rng, int(t))
+            videos[f"{kind}_{j:02d}"] = [clip[s:s + n] for s, n in scanner.window_plan(int(t))]
+    pairs = []
+    for kind in ("full", "short", "long"):
+        for j in rng.choice(24, 2, replace=False):
+            key = f"{kind}_{j:02d}"
+            videos[f"{key}_copy"] = [w.copy() for w in videos[key]]
+            pairs.append((key, f"{key}_copy"))
+    return videos, pairs
+
+
+def _video_embeddings(scanner, videos):
+    from video_fingerprint_tpu_torch.inference.scanner import reduce_windows
+
+    embs = scanner.embed_clips(((v, i), w) for v, ws in videos.items()
+                               for i, w in enumerate(ws))
+    return {v: reduce_windows([embs[(v, i)] for i in range(len(ws))], len(ws))
+            for v, ws in videos.items()}
+
+
+def _planted_threshold(E: np.ndarray, keys, pairs):
+    """A threshold halfway between the planted copies' least similarity
+    and every other pair's greatest; fails when they do not separate."""
+    pos = {k: i for i, k in enumerate(keys)}
+    sims = E.astype(np.float64) @ E.T.astype(np.float64)
+    copy_sims = [sims[pos[a], pos[b]] for a, b in pairs]
+    np.fill_diagonal(sims, -np.inf)
+    for a, b in pairs:
+        sims[pos[a], pos[b]] = sims[pos[b], pos[a]] = -np.inf
+    other_max = float(sims.max())
+    require(min(copy_sims) - other_max > 1e-5,
+            f"copies not separable: copy min {min(copy_sims)}, other max {other_max}")
+    return (min(copy_sims) + other_max) / 2, min(copy_sims), other_max
+
+
+def phase_scan3d(torch, workdir: Path):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    rng = np.random.default_rng(SEED + 3)
+    model_path = workdir / "model3d.pth"
+    _write_model_3d(torch, model_path, rng)
+    with contextlib.redirect_stdout(io.StringIO()):
+        scanner = FingerprintScanner(str(model_path), device=CARD, batch_size=BATCH)
+        cpu = FingerprintScanner(str(model_path), device="cpu", batch_size=16)
+    require((scanner.clip_length, scanner.frame_stride) == (CLIP_LENGTH, STRIDE_3D),
+            "3D checkpoint config not read")
+    videos, pairs = _seeded_videos_3d(rng, scanner)
+    windows = sum(len(ws) for ws in videos.values())
+    t0 = time.perf_counter()
+    scanner.warmup(10)
+    warmup_s = time.perf_counter() - t0
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    embs = _video_embeddings(scanner, videos)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    launches = _launches()
+    require(not any(launches.values()), f"a hand kernel ran in the 3D scan: {launches}")
+    keys = list(videos)
+    E = np.stack([embs[k] for k in keys])
+    norms = np.linalg.norm(E, axis=1)
+    require(bool(np.isfinite(E).all()), "non-finite 3D embeddings")
+    require(bool(np.abs(norms - 1).max() < 1e-5), f"3D norms off: {np.abs(norms - 1).max()}")
+    cpu_embs = _video_embeddings(cpu, videos)
+    cos = min(float(np.dot(embs[k], cpu_embs[k])) for k in keys)
+    require(cos >= 0.9999, f"3D card vs CPU cosine {cos}")
+
+    threshold, copy_min, other_max = _planted_threshold(E, keys, pairs)
+    fps = {k: {"embedding": embs[k], "path": k, "name": k, "size": len(videos[k]),
+               "file_hash": hashlib.md5(b"".join(w.tobytes() for w in videos[k])).hexdigest()}
+           for k in keys}
+    groups = {}
+    for route, topk_threshold in (("direct", 10 ** 9), ("topk", 100)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            card = _groups(scanner.find_duplicates(fps, threshold, topk_threshold))
+            plain = _groups(cpu.find_duplicates(fps, threshold, topk_threshold))
+        require(card == plain, f"3D {route}: card groups differ from CPU groups")
+        require(sorted(sorted(p) for p in pairs) == card,
+                f"3D {route}: groups {card} != planted copies")
+        groups[route] = len(card)
+
+    # the batching stage and the forward alone at B = 64 on 128-frame windows
+    full = [(i, rng.integers(0, 256, (CLIP_LENGTH, 64, 64, 3), dtype=np.uint8))
+            for i in range(4 * BATCH)]
+    scanner.embed_clips(full[:BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scanner.embed_clips(full)
+    torch.cuda.synchronize()
+    stage_wps = len(full) / (time.perf_counter() - t0)
+    frames = torch.from_numpy(np.stack([c for _, c in full[:BATCH]])).to(CARD)
+    blocks_ms = []
+    with torch.inference_mode(), full_fp32():
+        forward_ms = cuda_ms(lambda: scanner.model(frames))
+        forward_profile = _kernel_times(torch, lambda: scanner.model(frames))
+        x = (frames.float() / 255.0).permute(0, 4, 1, 2, 3)
+        for block in scanner.model.encoder:
+            blocks_ms.append(cuda_ms(lambda: block(x)))
+            x = block(x)
+    del frames, x
+    with FlopCounterMode(display=False) as counter, torch.inference_mode():
+        cpu.model(torch.zeros((1, CLIP_LENGTH, 64, 64, 3), dtype=torch.uint8))
+    gflop = counter.get_total_flops() / 1e9
+
+    cli = _cli_3d(torch, workdir, model_path)
+    emit({"phase": "scan3d", "parameters": 428_370, "videos": len(videos), "windows": windows,
+          "launches": launches, "warmup_s": warmup_s, "scan_s": scan_s,
+          "threshold": threshold, "copy_min_sim": copy_min, "other_max_sim": other_max,
+          "groups": groups, "card_vs_cpu_min_cos": cos,
+          "b64_stage_windows_per_s": stage_wps, "forward_b64_ms": forward_ms,
+          "forward_windows_per_s": BATCH / forward_ms * 1e3,
+          "block_ms": blocks_ms, "forward_profile": forward_profile, "gflop_per_window": gflop,
+          "tflop_per_s": BATCH * gflop / forward_ms, "cli": cli})
+
+
+def _cli_3d(torch, workdir: Path, model_path: Path):
+    """The scan CLI with the 3D checkpoint on 320-frame mp4s (3 windows
+    each), on the card and on the CPU."""
+    from video_fingerprint_tpu_torch.cli.scan import main
+    from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
+
+    videos = workdir / "videos3d"
+    make_corpus(videos, num_unique=4, num_frames=320, duplicates=2)
+    reports = {}
+    for device in (CARD, "cpu"):
+        out = workdir / f"results3d_{device}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = main(["--model", str(model_path), "--scan", str(videos),
+                       "--threshold", "0.999999", "--output", str(out),
+                       "--device", device, "--workers", "4", "--batch", "8"])
+        require(rc == 0, f"3D CLI on {device} exited {rc}")
+        reports[device] = json.loads(out.read_text())
+    card, cpu = reports[CARD], reports["cpu"]
+    require(card["metadata"]["total_videos"] == 6, "3D CLI did not embed all 6 videos")
+    require(card["metadata"]["model_type"] == "3d", "3D CLI model type")
+    groups = {d: _groups(r["duplicate_groups"]) for d, r in reports.items()}
+    require(groups[CARD] == groups["cpu"], f"3D CLI groups differ: {groups}")
+    for i in range(2):
+        require(any({str(videos / f"video_{i}.mp4"), str(videos / f"video_{i}_copy.mp4")}
+                    <= set(g) for g in groups[CARD]), f"3D CLI: copy {i} not grouped")
+    cos = min(float(np.dot(card["fingerprints"][p]["embedding"],
+                           cpu["fingerprints"][p]["embedding"]))
+              for p in card["fingerprints"])
+    require(cos >= 0.9999, f"3D CLI card vs CPU cosine {cos}")
+    return {"videos": 6, "frames": 320, "groups": len(groups[CARD]),
+            "card_vs_cpu_min_cos": cos}
+
+
+@contextlib.contextmanager
+def _counting_decodes():
+    """Counts the files the attention scan decodes while the block runs."""
+    from video_fingerprint_tpu_torch.data import decode
+
+    real, calls = decode.decode_subsampled, []
+
+    def counted(path, max_frames):
+        calls.append(str(path))
+        return real(path, max_frames)
+
+    decode.decode_subsampled = counted
+    try:
+        yield calls
+    finally:
+        decode.decode_subsampled = real
+
+
+def _index_cli(torch, workdir: Path, model_path: Path, device: str, storage: str):
+    """Library A into an index, library B (a new file and a byte-identical
+    re-upload from A) into the same index, a re-scan of A that decodes
+    nothing, B against the corpus (tests/test_scanner.py:228-288)."""
+    import shutil
+
+    from video_fingerprint_tpu_torch.cli.scan import main
+    from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
+    from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
+
+    root = Path(tempfile.mkdtemp(dir=workdir, prefix=f"index_{device}_{storage}_"))
+    lib_a, lib_b = root / "lib_a", root / "lib_b"
+    make_corpus(lib_a, num_unique=4, num_frames=40, duplicates=2)
+    make_corpus(lib_b, num_unique=1, num_frames=45, duplicates=0, seed0=50)
+    shutil.copy(lib_a / "video_3.mp4", lib_b / "reupload.mp4")
+    idx = root / "library.npz"
+    base = ["--model", str(model_path), "--device", device, "--workers", "2",
+            "--batch", "8", "--index", str(idx), "--index_storage", storage]
+
+    def run(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(args)
+        require(rc == 0, f"index CLI {device}/{storage} {args[-4:]} exited {rc}")
+        return out.getvalue()
+
+    run(base + ["--scan", str(lib_a)])
+    require(len(FingerprintIndex.load(idx)) == 6, "library A not indexed")
+    run(base + ["--scan", str(lib_b)])
+    merged = FingerprintIndex.load(idx)
+    require(len(merged) == 8 and merged.storage == storage, f"merge: {len(merged)} entries")
+    with _counting_decodes() as calls:
+        out = run(base + ["--scan", str(lib_a)])
+    require(not calls and "6 unchanged (index hit), 0 to scan" in out,
+            f"re-scan of A decoded {calls}")
+    result = root / "cross.json"
+    run(["--model", str(model_path), "--device", device, "--workers", "2", "--batch", "8",
+         "--scan", str(lib_b), "--against", str(idx), "--threshold", "0.999999",
+         "--output", str(result)])
+    groups = json.loads(result.read_text())["duplicate_groups"]
+    src, reup = str(lib_a / "video_3.mp4"), str(lib_b / "reupload.mp4")
+    hit = next(({i["path"]: i for i in g} for g in groups if g[0]["path"] == reup), {})
+    require(src in hit, f"--against did not pair the re-upload: {groups}")
+    require(hit[src]["exact_duplicate"] and hit[reup]["exact_duplicate"], "md5 flag")
+    require(abs(hit[src]["similarity"] - 1.0) <= 1e-6,
+            f"re-upload similarity {hit[src]['similarity']}")
+    return {"groups": sorted(sorted(i["path"].replace(str(root), "") for i in g)
+                             for g in groups),
+            "reupload_similarity": hit[src]["similarity"]}
+
+
+def _kernel_times(torch, fn, top: int = 6):
+    """Device time by kernel name over one call of fn (torch.profiler), the
+    `top` longest, and the share of the call's wall time the card was busy
+    (diagnostic: a profiler that fails is reported, not raised)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    except Exception as exc:  # noqa: BLE001 - the breakdown is informative, not a check
+        return {"profiler_error": repr(exc)}
+    busy = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "busy_share": busy / wall_ms,
+            "kernels": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:top]]}
+
+
+def _search_bound_ms(m: int, n: int, corpus_bytes: int):
+    t_ops = 2 * m * n * EMB_DIM / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = corpus_bytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _unit_rows(rng, n):
+    x = rng.standard_normal((n, EMB_DIM), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x
+
+
+def _oracle_topk(stored: np.ndarray, queries: np.ndarray, k: int, cosine: bool):
+    """float64 top-k of `queries` against `stored` (cosines of both when
+    `cosine`), by (score desc, index asc), the corpus read in blocks."""
+    q = queries.astype(np.float64)
+    if cosine:
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    sims = np.empty((len(q), len(stored)))
+    for lo in range(0, len(stored), 1 << 16):
+        block = stored[lo:lo + (1 << 16)].astype(np.float64)
+        if cosine:
+            block /= np.linalg.norm(block, axis=1, keepdims=True)
+        sims[:, lo:lo + len(block)] = q @ block.T
+    idx = np.argsort(-sims, axis=1, kind="stable")[:, :k]
+    return sims, idx
+
+
+def _check_oracle(scores, idx, sims, oracle_idx, what):
+    k = oracle_idx.shape[1]
+    worst_score = 0.0
+    for r in range(len(oracle_idx)):
+        kth = sims[r, oracle_idx[r, -1]]
+        for j in set(idx[r].tolist()) ^ set(oracle_idx[r].tolist()):
+            require(abs(sims[r, j] - kth) <= 1e-6, f"{what}: row {r} differs at {j}")
+        ref = sims[r, oracle_idx[r]]
+        worst_score = max(worst_score, float(np.abs(scores[r] - ref).max()))
+        worst_score = max(worst_score, float(np.abs(scores[r] - sims[r, idx[r]]).max()))
+    require(worst_score <= 2e-5, f"{what}: scores off by {worst_score}")
+    require(idx.shape[1] == k, what)
+    return worst_score
+
+
+def phase_index(torch, workdir: Path, model_path: Path):
+    from video_fingerprint_tpu_torch.inference.index import (
+        FingerprintIndex,
+        bf16_bits,
+        bf16_values,
+    )
+    from video_fingerprint_tpu_torch.ops.topk import topk_cosine, topk_search
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    # (a) the CLI flow, on the card and on the CPU, f32 and bf16 storage
+    flows = {}
+    for storage in ("f32", "bf16"):
+        _zero_launches()
+        card = _index_cli(torch, workdir, model_path, CARD, storage)
+        launches = _launches()
+        cpu = _index_cli(torch, workdir, model_path, "cpu", storage)
+        require(card["groups"] == cpu["groups"], f"index CLI {storage}: card {card} cpu {cpu}")
+        require(launches["attention"] > 0, "the index CLI's scans did not run K1")
+        flows[storage] = {**card, "attention_launches": launches["attention"]}
+
+    # (b) 1,000,000 seeded unit rows with 256 planted near copies
+    rng = np.random.default_rng(SEED + 5)
+    corpus = _unit_rows(rng, INDEX_ROWS)
+    src, dst = np.split(rng.choice(INDEX_ROWS, 512, replace=False), 2)
+    noisy = corpus[src] + rng.standard_normal((256, EMB_DIM), dtype=np.float32) * 0.002
+    corpus[dst] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    planted_cos = np.sum(corpus[src] * corpus[dst], axis=1)
+    require(bool(planted_cos.min() >= 0.999), f"planted cosine {planted_cos.min()}")
+    queries = np.concatenate([corpus[src], corpus[dst],
+                              corpus[rng.choice(INDEX_ROWS, 2048, replace=False)],
+                              _unit_rows(rng, INDEX_QUERIES - 2560)])
+    checked = np.concatenate([np.arange(8), 256 + np.arange(4), 3000 + np.arange(4)])
+    search = {}
+    for storage in ("f32", "bf16"):
+        index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
+        index.add(corpus)
+        _zero_launches()
+        t0 = time.perf_counter()
+        scores, idx = index.search(queries, k=20, exact_above=0.99)
+        first_s = time.perf_counter() - t0  # the corpus upload included
+        t0 = time.perf_counter()
+        scores, idx = index.search(queries, k=20, exact_above=0.99)
+        search_s = time.perf_counter() - t0
+        require(not any(_launches().values()), "a hand kernel ran in the index search")
+        for j in range(256):  # every planted copy, from both sides
+            for row, other in ((j, dst[j]), (256 + j, src[j])):
+                hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
+                require(hits.get(int(other), -1.0) >= 0.99,
+                        f"{storage}: planted copy {j} not found ({row})")
+        cosine = storage == "bf16"
+        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
+        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
+        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
+        err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx, storage)
+        del sims, stored
+        staged = index._corpus()
+        q_dev = torch.from_numpy(queries).to(CARD)
+        ms = cuda_ms(lambda: topk_search(q_dev, staged, 20, exact_above=0.99))
+        bound_ms, bound_by = _search_bound_ms(INDEX_QUERIES, INDEX_ROWS,
+                                              staged.numel() * staged.element_size())
+        search[storage] = {"ms": ms, "queries_per_s": INDEX_QUERIES / ms * 1e3,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "search_s": search_s, "first_search_s": first_s,
+                           "oracle_rows": len(checked), "max_score_err": err,
+                           "planted_min_cos": float(planted_cos.min()),
+                           "profile": _kernel_times(torch, lambda: topk_search(
+                               q_dev, staged, 20, exact_above=0.99))}
+        del index, staged, q_dev
+        torch.cuda.empty_cache()
+    del corpus
+
+    # (c) the scanner's top-k duplicate search at library size
+    emb = _unit_rows(rng, SELF_SEARCH_ROWS)
+    emb[1::1000] = emb[::1000][: len(emb[1::1000])]  # byte-identical copies
+    e_dev = torch.from_numpy(emb).to(CARD)
+    scores, idx = (t.cpu().numpy() for t in topk_cosine(e_dev, 20, exact_above=0.99))
+    rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
+    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    err = _check_oracle(scores[rows], idx[rows], sims, oracle_idx, "self-search")
+    for r in range(0, SELF_SEARCH_ROWS, 1000):
+        require(set(idx[r, :2].tolist()) == {r, r + 1},
+                f"self-search: row {r}'s first two are {idx[r, :2]}, not itself and its copy")
+    ms = cuda_ms(lambda: topk_cosine(e_dev, 20, exact_above=0.99), window_ms=500)
+    bound_ms, bound_by = _search_bound_ms(SELF_SEARCH_ROWS, SELF_SEARCH_ROWS, emb.nbytes)
+    search["self_100k"] = {"ms": ms, "queries_per_s": SELF_SEARCH_ROWS / ms * 1e3,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "max_score_err": err,
+                           "profile": _kernel_times(torch, lambda: topk_cosine(e_dev, 20))}
+    emit({"phase": "index", "cli": flows, "rows": INDEX_ROWS, "queries": INDEX_QUERIES,
+          "k": 20, "search": search})
+
+
 def main() -> int:
     import torch
 
@@ -577,6 +1034,8 @@ def main() -> int:
         launches, model_path = phase_scan(torch, Path(tmp))
         phase_cli(torch, Path(tmp), model_path)
         conv = phase_convblock(torch, model_path)
+        phase_scan3d(torch, Path(tmp))
+        phase_index(torch, Path(tmp), model_path)
     main_case = att[("float32", 128)]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of video_fingerprint_tpu_torch imports jax,
-the JAX package, cv2 or av at import time, and chip_smoke.py refuses to run
+the JAX package, ml_dtypes, cv2 or av at import time (the 3D model, the
+index and the scan cache among them), and chip_smoke.py refuses to run
 without a card."""
 
 import subprocess
@@ -21,7 +22,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "video_fingerprint_tpu"))
 print(len(names), bad)
-assert len(names) >= 15, names
+assert len(names) >= 19, names
+for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.device"):
+    assert pkg.__name__ + "." + name in names, name
+bad += sorted(m for m in sys.modules if m.split(".")[0] == "ml_dtypes")
 assert not bad, bad
 from video_fingerprint_tpu_torch.data.preprocess import bucket_for_length
 assert bucket_for_length(100, (32, 64, 128, 500)) == 128

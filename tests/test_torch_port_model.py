@@ -158,7 +158,11 @@ def test_bf16_matches_jax_bf16(variables, video):
 
 
 def test_create_model_3d_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("3d")
+    """Both 3D keys build the 3D model since it was ported (its tests are in
+    test_torch_port_model3d.py); an unknown key still raises."""
+    from video_fingerprint_tpu_torch.models import VideoFingerprint3D
+
+    for key in ("3d", "cnn3d"):
+        assert isinstance(create_model(key), VideoFingerprint3D)
     with pytest.raises(ValueError):
         create_model("nope")

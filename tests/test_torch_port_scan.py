@@ -182,3 +182,29 @@ def test_long_video_segments_match_jax(ckpt_short_max, monkeypatch):
     segments = [preprocess_frames(frames[s:s + 13], 64) for s in (0, 13, 27)]
     mean = np.mean([ours_scanner._embed_flat(c, 1)[0] for c in segments], axis=0)
     np.testing.assert_allclose(ours, mean, rtol=0, atol=1e-6)
+
+
+def test_segment_mean_is_not_renormalized(ckpt_short_max, monkeypatch):
+    """With segment embeddings that differ (a stand-in for the forward in
+    both packages), the attention path returns their plain mean, which is
+    not a unit vector; the 3D path renormalizes (test_torch_port_scan3d.py)."""
+    import video_fingerprint_tpu.data.decode as jax_decode
+    import video_fingerprint_tpu_torch.data.decode as port_decode
+
+    rng = np.random.default_rng(6)
+    frames = list(rng.integers(0, 256, (40, 64, 64, 3), dtype=np.uint8))
+    for module in (jax_decode, port_decode):
+        monkeypatch.setattr(module, "decode_subsampled", lambda path, max_frames: frames)
+
+    def stand_in(flat, batch_size):  # a unit vector per segment, from its content
+        x = np.asarray(flat, np.float64).reshape(batch_size, -1)[:, ::97][:, :256] - 0.5
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    ours_scanner = FingerprintScanner(ckpt_short_max, device="cpu")
+    monkeypatch.setattr(ours_scanner, "_embed_flat", stand_in)
+    jax_scanner = JaxScanner(ckpt_short_max, device="cpu")
+    monkeypatch.setattr(jax_scanner, "_fwd_flat", lambda v, x, b: stand_in(x, b))
+    ours = ours_scanner.extract_fingerprint("long.mp4")
+    np.testing.assert_allclose(ours, jax_scanner.extract_fingerprint("long.mp4"),
+                               rtol=0, atol=1e-6)
+    assert np.linalg.norm(ours) < 0.99

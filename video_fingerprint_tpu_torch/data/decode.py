@@ -7,15 +7,17 @@ scanner imports on a machine without OpenCV:
   - "pyav":   PyAV, used when importable (the reference's decoder);
   - "opencv": cv2.VideoCapture (ffmpeg inside the wheel) otherwise.
 
-Frames are RGB24 uint8. A decode failure gives an empty list, as the
-reference's scan does (fingerprint.py:105-107).
+Frames are RGB24 uint8. A decode failure gives an empty list in the
+attention scan (fingerprint.py:105-107) and a clip padded with black
+480x640 frames in the 3D scan's windows (dataset.py:160-195).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import lru_cache
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -27,6 +29,108 @@ def default_backend() -> str:
     except ImportError:
         return "opencv"
     return "pyav"
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoInfo:
+    total_frames: int
+    fps: float
+    duration: float
+    width: int = 0
+    height: int = 0
+
+
+def probe(path: Path | str) -> Optional[VideoInfo]:
+    """Video metadata, or None when the file does not open (reference
+    `_get_video_info`, fingerprint.py:111-129)."""
+    try:
+        if default_backend() == "pyav":
+            import av
+
+            container = av.open(str(path))
+            stream = container.streams.video[0]
+            total = stream.frames
+            if total == 0 and stream.duration:
+                total = int(stream.duration * stream.average_rate)
+            fps = float(stream.average_rate or 0)
+            w, h = stream.codec_context.width, stream.codec_context.height
+            container.close()
+        else:
+            import cv2
+
+            cap = cv2.VideoCapture(str(path))
+            if not cap.isOpened():
+                return None
+            total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            fps = float(cap.get(cv2.CAP_PROP_FPS))
+            w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+            h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+            cap.release()
+        duration = total / fps if fps > 0 else 0.0
+        return VideoInfo(total_frames=total, fps=fps, duration=duration, width=w, height=h)
+    except Exception:  # an unreadable file has no metadata, as in the reference
+        return None
+
+
+def decode_clip(path: Path | str, start_frame: int, num_frames: int) -> List[np.ndarray]:
+    """`num_frames` contiguous frames from `start_frame`, padded by repeating
+    the last frame, or with black 480x640 frames when nothing decoded
+    (reference `_load_clip_frames`, dataset.py:160-195).
+
+    PyAV seeks by timestamp and drops the frames decoded before it (the
+    reference passes a frame index to `container.seek`, which PyAV reads in
+    time_base units; the JAX package fixes that the same way); cv2 seeks
+    with CAP_PROP_POS_FRAMES."""
+    frames: List[np.ndarray] = []
+    try:
+        if default_backend() == "pyav":
+            frames = _decode_clip_av(path, start_frame, num_frames)
+        else:
+            frames = _decode_clip_cv2(path, start_frame, num_frames)
+    except Exception:  # pads to black below, as the reference does
+        frames = []
+    while len(frames) < num_frames:
+        frames.append(frames[-1].copy() if frames
+                      else np.zeros((480, 640, 3), dtype=np.uint8))
+    return frames[:num_frames]
+
+
+def _decode_clip_av(path, start_frame, num_frames) -> List[np.ndarray]:
+    import av
+
+    container = av.open(str(path))
+    stream = container.streams.video[0]
+    fps = float(stream.average_rate or 0)
+    target_pts = 0
+    if start_frame > 0 and fps > 0 and stream.time_base:
+        target_pts = int(start_frame / fps / stream.time_base)
+        container.seek(target_pts, stream=stream)
+    frames: List[np.ndarray] = []
+    for frame in container.decode(stream):
+        if frame.pts is not None and frame.pts < target_pts:
+            continue
+        frames.append(frame.to_ndarray(format="rgb24"))
+        if len(frames) >= num_frames:
+            break
+    container.close()
+    return frames
+
+
+def _decode_clip_cv2(path, start_frame, num_frames) -> List[np.ndarray]:
+    import cv2
+
+    frames: List[np.ndarray] = []
+    cap = cv2.VideoCapture(str(path))
+    if cap.isOpened():
+        if start_frame > 0:
+            cap.set(cv2.CAP_PROP_POS_FRAMES, start_frame)
+        while len(frames) < num_frames:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return frames
 
 
 def decode_subsampled(path: Path | str, max_frames: int) -> List[np.ndarray]:

@@ -1,18 +1,29 @@
 """Fingerprint scanner: directory scan -> embeddings -> duplicate groups.
 
-Port of video_fingerprint_tpu/inference/scanner.py for the attention model:
+Port of video_fingerprint_tpu/inference/scanner.py, for both model
+families:
 
   - the checkpoint (`.ckpt` or reference `.pth`) loads, BatchNorm folds into
     the convs (on by default), and the model is rebuilt from the embedded
     config;
-  - a decode producer turns paths into uint8 clips on host threads;
-  - the batching stage pads each clip to a length bucket, masks the padding
-    and forwards fixed-shape batches; partial batches are padded with rows
-    whose mask is all False. Staging buffers are pinned, the copies to and
-    from the card are asynchronous, and one batch's result is read back
-    only after the next batch is on its way;
+  - a decode producer turns paths into uint8 clips on host threads. The
+    attention model takes one subsampled clip per video; the 3D model takes
+    windows of up to `clip_length` frames (`window_plan`: one window for a
+    short video, 3-5 evenly strided ones for a longer one);
+  - the batching stage (`embed_clips`) pads each clip to a length bucket
+    and forwards fixed-shape batches: the attention model masks the padding
+    (partial batches get rows whose mask is all False); the 3D model's
+    buckets are multiples of its frame stride, where zero padding is the
+    model's own. Staging buffers are pinned, the copies to and from the
+    card are asynchronous, and one batch's result is read back only after
+    the next batch is on its way;
+  - a 3D video's windows reduce to one embedding: a single window's as it
+    is, several windows' mean renormalized (`reduce_windows`);
+  - an optional cache of an earlier scan (inference/scan_cache.py) skips
+    every file whose size and md5 of the first MiB are unchanged;
   - duplicates are grouped from the full similarity matrix (up to 100
-    videos) or from exact top-k candidates.
+    videos) or from exact top-k candidates, or searched against a saved
+    corpus (`find_duplicates_against`).
 
 Entry points run on the card (device="cuda") unless the caller asks for the
 CPU. In float32 mode every forward and similarity runs with TF32 off for
@@ -35,28 +46,19 @@ import numpy as np
 import torch
 
 from video_fingerprint_tpu_torch.data import decode, preprocess
+from video_fingerprint_tpu_torch.inference.index import identity_mismatch
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
 from video_fingerprint_tpu_torch.ops.topk import topk_cosine
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
+from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
-from video_fingerprint_tpu_torch.utils.torch_compat import (
-    attention_variables_to_state_dict,
-)
+from video_fingerprint_tpu_torch.utils.torch_compat import variables_to_state_dict
 
 DEFAULT_EXTENSIONS = [".mp4", ".avi", ".mov", ".mkv", ".webm", ".flv"]
 SCAN_BUCKETS = (32, 64, 128, 256, 512)
 MIN_FRAMES = 10  # reference minimum (fingerprint.py:238-240)
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """torch.device for "cuda" or "cpu"; "cuda" without a card raises."""
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {device!r}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
-    return dev
+MODEL_TYPES = ("attention", "3d", "cnn3d")
 
 
 class _Readback:
@@ -130,7 +132,7 @@ class _Staging:
 
     def stage(self, bucket: int, clips: Sequence[np.ndarray]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pad `clips` into a (B*bucket, H, W, 3) uint8 batch and a (B, bucket)
+        """Pad `clips` into a (B, bucket, H, W, 3) uint8 batch and a (B, bucket)
         mask on the device; rows past len(clips) are zero with an all-False
         mask."""
         slots = self._slots.setdefault(bucket, [])
@@ -153,7 +155,7 @@ class _Staging:
         mask_dev = mask.to(self.device, non_blocking=True)
         if copied is not None:
             copied.record()
-        return frames_dev.view((-1,) + tuple(frames.shape[2:])), mask_dev
+        return frames_dev, mask_dev
 
 
 class FingerprintScanner:
@@ -162,7 +164,9 @@ class FingerprintScanner:
     device: "cuda" (default; raises without a card) or "cpu". bf16=False
     computes in float32 with TF32 off for cuDNN convolutions and cuBLAS
     matmuls; bf16=True casts the model to bfloat16. optimize folds eval
-    BatchNorm into the convs (lossless).
+    BatchNorm into the convs (lossless). The model family, its widths and
+    the 3D model's clip_length (default 128) and frame_stride (default 32)
+    come from the checkpoint's config.
     """
 
     def __init__(
@@ -180,16 +184,17 @@ class FingerprintScanner:
         print(f"Loading model from {model_path}...")
         self.variables, self.config = load_any(model_path)
         self.model_type = self.config.get("model_type", "attention")
-        if self.model_type != "attention":
-            raise NotImplementedError(
-                f"model_type {self.model_type!r} is not ported yet "
-                "(ROADMAP.md, module item 7)")
+        if self.model_type not in MODEL_TYPES:
+            raise ValueError(f"Unknown model type: {self.model_type}")
+        self.is_3d = self.model_type != "attention"
         # identity of the embedding space: config + a hash of the raw
         # checkpoint arrays, equal to the JAX scanner's for the same file
         param_hash = _hash_variables(self.variables)
         self.frame_size = self.config.get("frame_size", 64)
         self.max_frames = self.config.get("max_frames", 500)
         self.embedding_dim = self.config.get("embedding_dim", 256)
+        self.clip_length = self.config.get("clip_length", 128)
+        self.frame_stride = self.config.get("frame_stride", 32)
         self.model_identity = {
             "model_type": self.model_type,
             "embedding_dim": self.embedding_dim,
@@ -200,23 +205,27 @@ class FingerprintScanner:
 
         # Lossless inference fusion: eval BN folded into the conv weights.
         self.fused = bool(optimize)
-        sd = attention_variables_to_state_dict(self.variables)
+        sd = variables_to_state_dict(self.variables, self.model_type)
         if self.fused:
-            sd = fuse_state_dict(sd)
+            sd = fuse_state_dict(sd, self.model_type)
         self.model = create_model(
             self.model_type,
             spatial_dim=self.config.get("spatial_dim", 128),
             temporal_dim=self.config.get("temporal_dim", 256),
             embedding_dim=self.embedding_dim,
             num_attention_blocks=self.config.get("num_attention_blocks", 4),
+            frame_stride=self.frame_stride,
             fused=self.fused,
         )
         self.model.load_state_dict(
             {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
         self.model.to(device=self.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32).eval()
-        if self.device.type == "cuda":
-            self.model.spatial_encoder.to(memory_format=torch.channels_last)
+        if self.device.type == "cuda":  # the layouts cuDNN takes directly
+            if self.is_3d:
+                self.model.encoder.to(memory_format=torch.channels_last_3d)
+            else:
+                self.model.spatial_encoder.to(memory_format=torch.channels_last)
 
         self.buckets = tuple(
             b for b in (buckets or SCAN_BUCKETS) if b < self.max_frames
@@ -229,19 +238,38 @@ class FingerprintScanner:
         with torch.inference_mode(), full_fp32():
             yield
 
-    def warmup(self) -> None:
-        """Run the batched forward once per bucket, so the kernel build and
-        cuDNN's plans happen before the scan."""
+    def warmup(self, num_frames: Optional[int] = None) -> None:
+        """Run the batched forward once per bucket the scan may use, so the
+        kernel build and cuDNN's plans happen before the scan: every bucket
+        when num_frames is None, else the bucket of num_frames (attention),
+        or clip_length plus the stride-multiple bucket of a shorter
+        num_frames (3D)."""
         B, fs = self.batch_size, self.frame_size
-        for bucket in self.buckets:
-            frames = torch.zeros((B * bucket, fs, fs, 3), dtype=torch.uint8,
+        if self.is_3d:
+            lengths = {self.clip_length}
+            if num_frames is not None and num_frames < self.clip_length:
+                lengths.add(self._3d_bucket(max(MIN_FRAMES, num_frames)))
+        elif num_frames is None:
+            lengths = set(self.buckets)
+        else:
+            lengths = {preprocess.bucket_for_length(min(num_frames, self.max_frames),
+                                                    self.buckets)}
+        for length in sorted(lengths):
+            frames = torch.zeros((B, length, fs, fs, 3), dtype=torch.uint8,
                                  device=self.device)
-            mask = torch.zeros((B, bucket), dtype=torch.bool, device=self.device)
+            mask = torch.zeros((B, length), dtype=torch.bool, device=self.device)
             mask[:, 0] = True
             with self._inference():
-                self.model.forward_flat(frames, B, mask)
+                self._forward_batch(frames, mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _forward_batch(self, frames: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, 3) staged batch and its (B, T) mask -> (B, D)."""
+        if self.is_3d:  # stride-multiple buckets: the zero padding is the model's own
+            return self.model(frames)
+        return self.model.forward_flat(frames.view((-1,) + tuple(frames.shape[2:])),
+                                       frames.shape[0], mask)
 
     # ------------------------------------------------------------------
     # Single-video extraction (reference fingerprint.py:216-320)
@@ -255,7 +283,9 @@ class FingerprintScanner:
     def extract_fingerprint(self, video_path: Path, num_segments: int = 3
                             ) -> Optional[np.ndarray]:
         """One video, unbatched: its embedding, or None when it decodes to
-        fewer than 10 frames."""
+        (attention) or has (3D) fewer than 10 frames."""
+        if self.is_3d:
+            return self._extract_3d(Path(video_path))
         frames = decode.decode_subsampled(video_path, self.max_frames)
         if len(frames) < MIN_FRAMES:
             print(f"Video too short: {video_path} ({len(frames)} frames)")
@@ -284,6 +314,48 @@ class FingerprintScanner:
             stacked.reshape((-1,) + stacked.shape[2:]), len(clips))
         return np.mean(embeddings, axis=0)
 
+    def window_plan(self, total_frames: int) -> List[Tuple[int, int]]:
+        """3D windows (start, length) of a video of total_frames frames: one
+        window of the whole video up to clip_length frames, else
+        min(5, max(3, total // (2 * clip_length))) evenly strided windows of
+        clip_length frames (fingerprint.py:293-318)."""
+        L = self.clip_length
+        if total_frames <= L:
+            return [(0, total_frames)]
+        n = min(5, max(3, total_frames // (L * 2)))
+        stride = (total_frames - L) // (n - 1)
+        return [(i * stride, L) for i in range(n)]
+
+    def _3d_bucket(self, num_frames: int) -> int:
+        """Padded length of a 3D clip: the next multiple of frame_stride,
+        capped at clip_length. The model zero-pads time to that multiple
+        anyway (models/cnn3d.py), so a clip padded there embeds as its own
+        length does, and short videos share batches."""
+        stride = max(1, self.frame_stride)
+        return min(self.clip_length, -(-num_frames // stride) * stride)
+
+    def _window_clip(self, video_path: Path, start: int, length: int,
+                     normalize: bool) -> np.ndarray:
+        frames = decode.decode_clip(video_path, start, length)
+        frames = [preprocess.square_center_crop_resize(f, self.frame_size)
+                  for f in frames]
+        return (preprocess.frames_to_clip(frames) if normalize
+                else preprocess.frames_to_clip_u8(frames))
+
+    def _extract_3d(self, video_path: Path) -> Optional[np.ndarray]:
+        """One video through the 3D model window by window (batch 1, float
+        clips normalized on the host)."""
+        info = decode.probe(video_path)
+        if not info or info.total_frames < MIN_FRAMES:
+            return None
+        windows = self.window_plan(info.total_frames)
+        embs = []
+        for start, length in windows:
+            clip = torch.from_numpy(self._window_clip(video_path, start, length, True))
+            with self._inference():
+                embs.append(self.model(clip[None].to(self.device)).cpu().numpy()[0])
+        return reduce_windows(embs, len(windows))
+
     # ------------------------------------------------------------------
     # Directory scan (reference fingerprint.py:322-448)
     # ------------------------------------------------------------------
@@ -294,7 +366,12 @@ class FingerprintScanner:
         extensions: Optional[List[str]] = None,
         num_workers: int = 4,
         batched: bool = True,
+        cache: Optional[Dict[str, dict]] = None,
     ) -> Dict[str, dict]:
+        """{path: fingerprint} for every video under `directory`. With a
+        `cache` ({path: fingerprint} of an earlier scan), a file whose size
+        and md5 of the first MiB match its entry keeps that entry and is not
+        decoded; the hits are merged into the result."""
         directory = Path(directory)
         extensions = extensions or DEFAULT_EXTENSIONS
         video_paths: List[Path] = []
@@ -304,8 +381,29 @@ class FingerprintScanner:
         video_paths = sorted(set(video_paths))
         print(f"\n{len(video_paths)} videos found in {directory}")
 
+        cached_hits: Dict[str, dict] = {}
+        if cache:
+            remaining: List[Path] = []
+            for p in video_paths:
+                entry = cache.get(str(p))
+                try:
+                    hit = (entry is not None
+                           and p.stat().st_size == entry.get("size")
+                           and compute_file_hash(p, max_bytes=1024 * 1024)
+                           == entry.get("file_hash"))
+                except OSError:  # gone since the glob: the scan counts it as a failure
+                    hit = False
+                if hit:
+                    cached_hits[str(p)] = entry
+                else:
+                    remaining.append(p)
+            print(f"{len(cached_hits)} unchanged (index hit), {len(remaining)} to scan")
+            video_paths = remaining
+
         start = time.time()
-        if batched:
+        if batched and self.is_3d:
+            fingerprints, failed = self._scan_batched_3d(video_paths, num_workers)
+        elif batched:
             fingerprints, failed = self._scan_batched(video_paths, num_workers)
         else:
             fingerprints, failed = self._scan_sequential(video_paths)
@@ -316,6 +414,7 @@ class FingerprintScanner:
                 f"({len(fingerprints) / max(elapsed, 1e-9):.2f} videos/s, "
                 f"{failed} failures)"
             )
+        fingerprints.update(cached_hits)
         return fingerprints
 
     def _metadata(self, video_path: Path, embedding: np.ndarray) -> dict:
@@ -355,6 +454,58 @@ class FingerprintScanner:
         fingerprints = {str(p): self._metadata(p, e) for p, e in embeddings.items()}
         return fingerprints, failed
 
+    def _scan_batched_3d(self, video_paths: List[Path], num_workers: int):
+        """Window planner -> decode producer -> batching stage -> one
+        embedding per video. A video fails when it cannot be probed, has
+        fewer than 10 frames, or none of its windows decoded; otherwise it
+        reduces over the windows that did."""
+        plans = self.plan_windows(video_paths, num_workers)
+        embeddings = self.embed_clips(self.decode_windows(plans, num_workers))
+        fingerprints: Dict[str, dict] = {}
+        failed = 0
+        for path, windows in plans:
+            embs = [embeddings[(path, i)] for i in range(len(windows or ()))
+                    if (path, i) in embeddings]
+            if not embs:
+                failed += 1
+                continue
+            fingerprints[str(path)] = self._metadata(path, reduce_windows(embs, len(windows)))
+        return fingerprints, failed
+
+    def plan_windows(self, video_paths: Sequence[Path], num_workers: int
+                     ) -> List[Tuple[Path, Optional[List[Tuple[int, int]]]]]:
+        """(path, windows) per video, probed by a pool of host threads;
+        windows is None for a video that cannot be probed or has fewer than
+        10 frames."""
+        def plan(path):
+            info = decode.probe(path)
+            if not info or info.total_frames < MIN_FRAMES:
+                return path, None
+            return path, self.window_plan(info.total_frames)
+
+        with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
+            return list(pool.map(plan, video_paths))
+
+    def decode_windows(self, plans, num_workers: int
+                       ) -> Iterator[Tuple[Tuple[Path, int], np.ndarray]]:
+        """Decode producer of the 3D scan: ((path, window index), (T, H, W, 3)
+        uint8 clip) in plan order, decoded by a pool of host threads. A
+        window that fails to decode is left out."""
+        jobs = [(path, i, start, length) for path, windows in plans if windows
+                for i, (start, length) in enumerate(windows)]
+
+        def load(job):
+            path, _, start, length = job
+            try:
+                return self._window_clip(path, start, length, normalize=False)
+            except Exception:  # one unreadable window must not end the scan
+                return None
+
+        with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
+            for (path, i, _, _), clip in zip(jobs, pool.map(load, jobs)):
+                if clip is not None:
+                    yield (path, i), clip
+
     def decode_clips(self, video_paths: Sequence[Path], num_workers: int
                      ) -> Iterator[Tuple[Path, Optional[np.ndarray]]]:
         """Decode producer: paths -> (path, (T, H, W, 3) uint8 clip), in path
@@ -388,13 +539,16 @@ class FingerprintScanner:
     def embed_clips(self, clips: Iterable[Tuple[Hashable, np.ndarray]]
                     ) -> Dict[Hashable, np.ndarray]:
         """Batching stage: (key, (T, H, W, 3) uint8 clip) pairs -> {key:
-        embedding}, in the order the batches complete.
+        embedding}, in the order the batches complete. T is 1..max_frames
+        (attention) or 1..clip_length (3D).
 
-        Clips are grouped by length bucket; a bucket's batch is forwarded when
-        it holds batch_size clips, and every partial batch at the end."""
-        pending: Dict[int, list] = {b: [] for b in self.buckets}
+        Clips are grouped by length bucket (the scan buckets, or the 3D
+        model's stride multiples); a bucket's batch is forwarded when it
+        holds batch_size clips, and every partial batch at the end."""
+        pending: Dict[int, list] = {}
         out: Dict[Hashable, np.ndarray] = {}
         shape = (self.frame_size, self.frame_size, 3)
+        limit = self.clip_length if self.is_3d else self.max_frames
 
         def on_result(items, embs):
             for i, (key, _) in enumerate(items):
@@ -403,27 +557,25 @@ class FingerprintScanner:
         pipeline = _AsyncPipeline(on_result)
 
         def flush(bucket: int):
-            items = pending[bucket]
-            if not items:
-                return
+            items = pending.pop(bucket)
             frames, mask = self._staging.stage(bucket, [clip for _, clip in items])
             with self._inference():
-                embs = self.model.forward_flat(frames, self.batch_size, mask)
+                embs = self._forward_batch(frames, mask)
                 pipeline.dispatch(items, _Readback(embs))
-            pending[bucket] = []
 
         for key, clip in clips:
             if clip.dtype != np.uint8 or clip.shape[1:] != shape:
                 raise ValueError(f"clip {key!r}: expected (T, {shape[0]}, {shape[1]}, "
                                  f"3) uint8, got {clip.shape} {clip.dtype}")
-            if not 1 <= clip.shape[0] <= self.max_frames:
+            if not 1 <= clip.shape[0] <= limit:
                 raise ValueError(f"clip {key!r}: {clip.shape[0]} frames, expected "
-                                 f"1..{self.max_frames}")
-            bucket = preprocess.bucket_for_length(clip.shape[0], self.buckets)
-            pending[bucket].append((key, clip))
+                                 f"1..{limit}")
+            bucket = (self._3d_bucket(clip.shape[0]) if self.is_3d
+                      else preprocess.bucket_for_length(clip.shape[0], self.buckets))
+            pending.setdefault(bucket, []).append((key, clip))
             if len(pending[bucket]) >= self.batch_size:
                 flush(bucket)
-        for bucket in self.buckets:
+        for bucket in sorted(pending):
             flush(bucket)
         pipeline.finish()
         return out
@@ -437,9 +589,14 @@ class FingerprintScanner:
         fingerprints: Dict[str, dict],
         similarity_threshold: float = 0.95,
         topk_threshold: int = 100,
+        use_faiss: bool = True,
     ) -> List[List[dict]]:
         """Greedy duplicate groups: from the full similarity matrix up to
-        `topk_threshold` videos, from exact top-k candidates above it."""
+        `topk_threshold` videos, from exact top-k candidates above it.
+        use_faiss is the reference's name (fingerprint.py:454) for the top-k
+        route; False forces the full matrix."""
+        if not use_faiss:
+            topk_threshold = 1 << 60
         if len(fingerprints) < 2:
             return []
 
@@ -492,7 +649,8 @@ class FingerprintScanner:
         """k-NN candidates from exact top-k + the greedy grouping the
         reference applies to its FAISS results (fingerprint.py:515-548)."""
         n = len(embeddings)
-        sims, idx = topk_cosine(torch.from_numpy(embeddings).to(self.device), min(20, n))
+        sims, idx = topk_cosine(torch.from_numpy(embeddings).to(self.device), min(20, n),
+                                exact_above=threshold)
         sims, idx = sims.cpu().numpy(), idx.cpu().numpy()
 
         processed = set()
@@ -510,6 +668,70 @@ class FingerprintScanner:
             if len(group) > 1:
                 groups.append(group)
         return groups
+
+    def find_duplicates_against(
+        self,
+        fingerprints: Dict[str, dict],
+        index,
+        similarity_threshold: float = 0.95,
+        k: int = 20,
+    ) -> List[List[dict]]:
+        """Query-vs-corpus search: each scanned video is searched against a
+        saved `FingerprintIndex` and reported as a group [query, matching
+        corpus entries...] when any entry clears the threshold. A corpus
+        entry with the query's own path is skipped. Raises ValueError for
+        an index of another model or embedding dimension."""
+        if not fingerprints or len(index) == 0:
+            return []
+        reason = identity_mismatch(index.model_identity, self.model_identity)
+        if reason:
+            raise ValueError(
+                f"corpus index was built by a different model ({reason}); "
+                f"its embeddings are not comparable with this checkpoint's")
+        if index.dim != self.embedding_dim:
+            raise ValueError(f"corpus index embedding dim {index.dim} != model "
+                             f"embedding dim {self.embedding_dim}")
+
+        paths = list(fingerprints.keys())
+        queries = np.stack([np.asarray(fingerprints[p]["embedding"], np.float32)
+                            for p in paths])
+        sims, idx = index.search(queries, k=k, exact_above=similarity_threshold)
+
+        groups: List[List[dict]] = []
+        for qi, path in enumerate(paths):
+            anchor = dict(fingerprints[path])
+            anchor["similarity"] = 1.0
+            group = [anchor]
+            for sim, j in zip(sims[qi], idx[qi]):
+                if sim < similarity_threshold:
+                    continue
+                meta = index.meta(int(j))
+                if meta.get("path") == path:
+                    continue
+                item = dict(meta)
+                item["similarity"] = float(sim)
+                group.append(item)
+            if len(group) > 1:
+                groups.append(group)
+
+        for group in groups:
+            hashes = [item.get("file_hash") for item in group]
+            for item in group:
+                item["exact_duplicate"] = (item.get("file_hash") is not None
+                                           and hashes.count(item["file_hash"]) > 1)
+        return groups
+
+
+def reduce_windows(embeddings: Sequence[np.ndarray], num_windows: int) -> np.ndarray:
+    """One 3D video's embedding from its windows': a single-window video's
+    as the model gave it (already unit norm), else the mean over the windows
+    that decoded, renormalized (fingerprint.py:300-318). The attention path
+    averages its segments without renormalizing; both rules are the
+    reference's."""
+    if num_windows == 1:
+        return np.asarray(embeddings[0])
+    mean = np.mean(np.stack(embeddings), axis=0)
+    return mean / np.linalg.norm(mean)
 
 
 def _hash_variables(variables) -> str:

@@ -1,20 +1,27 @@
 """Model registry, keyed by the same strings as the reference factory
-(reference model.py:585-610) so checkpoint-embedded configs round-trip."""
+(reference model.py:585-610) so checkpoint-embedded configs round-trip.
+
+A reference quirk is kept, as the JAX package keeps it: the factory's 3D
+`frame_stride` default is 16 (model.py:606), while the scanner reads 32
+when a checkpoint's config names none."""
 
 from __future__ import annotations
 
+from torch import nn
+
 from video_fingerprint_tpu_torch.models.attention import VideoFingerprintAttention
+from video_fingerprint_tpu_torch.models.cnn3d import VideoFingerprint3D
 
-__all__ = ["create_model", "VideoFingerprintAttention"]
+__all__ = ["create_model", "VideoFingerprintAttention", "VideoFingerprint3D"]
 
 
-def create_model(model_type: str = "attention", **kwargs) -> VideoFingerprintAttention:
+def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
     """Create a fingerprint model (an nn.Module, float32, in train mode as
     torch creates every module; call .eval() for inference).
 
     kwargs: spatial_dim, temporal_dim, embedding_dim, num_attention_blocks
-    (the reference's keys) and fused (BN folded into the convs; weights from
-    models/fuse.py).
+    (attention), embedding_dim, frame_stride, dropout (3D), the reference's
+    keys, and fused (BN folded into the convs; weights from models/fuse.py).
     """
     if model_type == "attention":
         return VideoFingerprintAttention(
@@ -25,6 +32,10 @@ def create_model(model_type: str = "attention", **kwargs) -> VideoFingerprintAtt
             fused=kwargs.get("fused", False),
         )
     if model_type in ("3d", "cnn3d"):
-        raise NotImplementedError(
-            "the 3D-CNN model is not ported yet (ROADMAP.md, module item 7)")
+        return VideoFingerprint3D(
+            embedding_dim=kwargs.get("embedding_dim", 256),
+            frame_stride=kwargs.get("frame_stride", 16),
+            dropout=kwargs.get("dropout", 0.2),
+            fused=kwargs.get("fused", False),
+        )
     raise ValueError(f"Unknown model type: {model_type}")

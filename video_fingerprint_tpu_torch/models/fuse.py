@@ -18,20 +18,26 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-# (conv, bn) state_dict prefixes of the attention model
-_SPATIAL = [(f"spatial_encoder.encoder.{c}", f"spatial_encoder.encoder.{b}")
-            for c, b in [(0, 1), (3, 4), (6, 7), (9, 10)]]
-_TEMPORAL = [(f"temporal_conv_blocks.{i}.convs.{j}.0",
-              f"temporal_conv_blocks.{i}.convs.{j}.1")
-             for i in range(2) for j in range(4)]
+# (conv, bn) state_dict prefixes per model type
+_PAIRS = {
+    "attention": [(f"spatial_encoder.encoder.{c}", f"spatial_encoder.encoder.{b}")
+                  for c, b in [(0, 1), (3, 4), (6, 7), (9, 10)]]
+                 + [(f"temporal_conv_blocks.{i}.convs.{j}.0",
+                     f"temporal_conv_blocks.{i}.convs.{j}.1")
+                    for i in range(2) for j in range(4)],
+    "3d": [(f"encoder.{i}.conv", f"encoder.{i}.bn") for i in range(4)],
+}
+_PAIRS["cnn3d"] = _PAIRS["3d"]
 
 
-def fuse_state_dict(sd: Mapping[str, np.ndarray], eps: float = 1e-5
-                    ) -> Dict[str, np.ndarray]:
-    """Standard attention-model state_dict -> state_dict of the fused model
-    (no BatchNorm entries left)."""
+def fuse_state_dict(sd: Mapping[str, np.ndarray], model_type: str = "attention",
+                    eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """Standard state_dict -> state_dict of the fused model (no BatchNorm
+    entries left), for model_type "attention", "3d" or "cnn3d"."""
+    if model_type not in _PAIRS:
+        raise ValueError(f"Unknown model type: {model_type}")
     out = {k: np.asarray(v) for k, v in sd.items()}
-    for conv, bn in _SPATIAL + _TEMPORAL:
+    for conv, bn in _PAIRS[model_type]:
         kernel = out[f"{conv}.weight"]
         bias = out[f"{conv}.bias"]
         a = out.pop(f"{bn}.weight") / np.sqrt(out.pop(f"{bn}.running_var") + eps)

@@ -1,4 +1,4 @@
-"""Eval-mode layers of the attention fingerprint model.
+"""Eval-mode layers of the fingerprint models.
 
 Submodules are named after the upstream reference's state_dict keys
 (reference model.py:74-179; the key table is utils/torch_compat.py), so a
@@ -150,3 +150,19 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xt = x.transpose(1, 2)
         return torch.cat([conv(xt) for conv in self.convs], dim=1).transpose(1, 2)
+
+
+class Conv3DBlock(nn.Module):
+    """Conv3d (+BN3d) + ReLU on (B, C, T, H, W), the 3D model's encoder block
+    (reference model.py:393-403). Submodules `conv` and `bn` carry the
+    reference's state_dict keys; fused=True drops the BatchNorm, whose eval
+    affine models/fuse.py folds into the conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride, padding,
+                 fused: bool = False):
+        super().__init__()
+        self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride, padding=padding)
+        self.bn = _bn_or_identity(nn.BatchNorm3d(out_ch), fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))

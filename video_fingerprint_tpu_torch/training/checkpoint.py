@@ -131,21 +131,15 @@ def load_torch_checkpoint(path: Path | str) -> Tuple[Dict, Dict[str, Any]]:
     """A reference `.pth` -> (flax-layout variables, config)."""
     import torch
 
-    from video_fingerprint_tpu_torch.utils.torch_compat import (
-        attention_state_dict_to_variables,
-    )
+    from video_fingerprint_tpu_torch.utils.torch_compat import state_dict_to_variables
 
     # Not weights_only: reference checkpoints carry optimizer/scheduler state
     # and metrics beside the weights, as the JAX package's loader accepts.
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     config = ckpt.get("config", {})
-    model_type = config.get("model_type", "attention")
-    if model_type != "attention":
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP.md, module item 7)")
     sd = {k: v.detach().cpu().numpy() for k, v in ckpt["model_state_dict"].items()
           if k != "pos_encoding.pe"}
-    return attention_state_dict_to_variables(sd), config
+    return state_dict_to_variables(sd, config.get("model_type", "attention")), config
 
 
 def load_any(path: Path | str) -> Tuple[Dict, Dict[str, Any]]:

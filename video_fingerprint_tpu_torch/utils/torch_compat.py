@@ -1,12 +1,14 @@
-"""Reference state_dict <-> flax-layout variables, for the attention model.
+"""Reference state_dict <-> flax-layout variables, for both model families.
 
 The port's models hold the upstream reference's state_dict layout. The JAX
 package and its `.ckpt` checkpoints hold flax variables ({'params',
-'batch_stats'} trees of numpy arrays). These two functions carry weights
+'batch_stats'} trees of numpy arrays). These functions carry weights
 across, as pure layout changes (a copy of the tables in
-video_fingerprint_tpu/utils/torch_compat.py):
+video_fingerprint_tpu/utils/torch_compat.py); `state_dict_to_variables`
+and `variables_to_state_dict` pick the table by the config's model_type:
 
   conv2d  torch (O,I,kh,kw)  <-> flax (kh,kw,I,O)
+  conv3d  torch (O,I,kd,kh,kw) <-> flax (kd,kh,kw,I,O)
   conv1d  torch (O,I/g,k)    <-> flax (k,I/g,O)
   linear  torch (O,I)        <-> flax (I,O)
   conv1d k=1 used as pointwise <-> linear
@@ -163,3 +165,69 @@ def attention_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
     temporal_dim = _get(params, "temporal_projection/dense/kernel").shape[1]
     sd["pos_encoding.pe"] = _sinusoidal_table(PE_MAX_LEN, temporal_dim)[None].copy()
     return sd
+
+
+def cnn3d_state_dict_to_variables(sd: Mapping[str, np.ndarray]) -> Dict:
+    """Reference VideoFingerprint3D state_dict -> flax variables."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params: Dict = {}
+    stats: Dict = {}
+    for i in range(4):  # Conv3DBlocks at encoder indices 0..3
+        tk, op = f"encoder.{i}", f"block{i}"
+        _set(params, f"{op}/conv/conv/kernel",
+             np.ascontiguousarray(np.transpose(sd[f"{tk}.conv.weight"], (2, 3, 4, 1, 0))))
+        _set(params, f"{op}/conv/conv/bias", sd[f"{tk}.conv.bias"])
+        _set(params, f"{op}/bn/scale", sd[f"{tk}.bn.weight"])
+        _set(params, f"{op}/bn/bias", sd[f"{tk}.bn.bias"])
+        _set(stats, f"{op}/bn/mean", sd[f"{tk}.bn.running_mean"])
+        _set(stats, f"{op}/bn/var", sd[f"{tk}.bn.running_var"])
+    for name in ("temporal_conv", "temporal_attention"):
+        _set(params, f"{name}/conv/kernel",
+             np.ascontiguousarray(np.transpose(sd[f"{name}.weight"], (2, 1, 0))))
+        _set(params, f"{name}/conv/bias", sd[f"{name}.bias"])
+    for torch_key, our in (("projector.0", "projector_1"), ("projector.3", "projector_2")):
+        _set(params, f"{our}/dense/kernel", _t(sd[f"{torch_key}.weight"]))
+        _set(params, f"{our}/dense/bias", sd[f"{torch_key}.bias"])
+    _set(params, "temperature", sd["temperature"])
+    return {"params": params, "batch_stats": stats}
+
+
+def cnn3d_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
+    """Flax variables -> reference VideoFingerprint3D state_dict layout."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(4):
+        op, tk = f"block{i}", f"encoder.{i}"
+        w = _get(params, f"{op}/conv/conv/kernel")  # (kd, kh, kw, in, out)
+        sd[f"{tk}.conv.weight"] = np.ascontiguousarray(np.transpose(w, (4, 3, 0, 1, 2)))
+        sd[f"{tk}.conv.bias"] = _get(params, f"{op}/conv/conv/bias")
+        sd[f"{tk}.bn.weight"] = _get(params, f"{op}/bn/scale")
+        sd[f"{tk}.bn.bias"] = _get(params, f"{op}/bn/bias")
+        sd[f"{tk}.bn.running_mean"] = _get(stats, f"{op}/bn/mean")
+        sd[f"{tk}.bn.running_var"] = _get(stats, f"{op}/bn/var")
+        sd[f"{tk}.bn.num_batches_tracked"] = np.asarray(0, np.int64)
+    for name in ("temporal_conv", "temporal_attention"):
+        w = _get(params, f"{name}/conv/kernel")  # (k, in, out)
+        sd[f"{name}.weight"] = np.ascontiguousarray(np.transpose(w, (2, 1, 0)))
+        sd[f"{name}.bias"] = _get(params, f"{name}/conv/bias")
+    for our, torch_key in (("projector_1", "projector.0"), ("projector_2", "projector.3")):
+        sd[f"{torch_key}.weight"] = _t(_get(params, f"{our}/dense/kernel"))
+        sd[f"{torch_key}.bias"] = _get(params, f"{our}/dense/bias")
+    sd["temperature"] = _get(params, "temperature")
+    return sd
+
+
+def state_dict_to_variables(sd: Mapping[str, np.ndarray], model_type: str) -> Dict:
+    if model_type == "attention":
+        return attention_state_dict_to_variables(sd)
+    if model_type in ("3d", "cnn3d"):
+        return cnn3d_state_dict_to_variables(sd)
+    raise ValueError(f"Unknown model type: {model_type}")
+
+
+def variables_to_state_dict(variables, model_type: str) -> Dict[str, np.ndarray]:
+    if model_type == "attention":
+        return attention_variables_to_state_dict(variables)
+    if model_type in ("3d", "cnn3d"):
+        return cnn3d_variables_to_state_dict(variables)
+    raise ValueError(f"Unknown model type: {model_type}")
