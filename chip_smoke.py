@@ -46,11 +46,24 @@ Phases, each of which raises (exit code 1) on any failure:
      FingerprintIndex(device="cuda") over 1,000,000 x 256 seeded rows with
      256 planted near copies, 4,096 queries at k = 20 in f32 and bf16
      storage against a float64 oracle; topk_cosine self-search at
-     100,000 x 256; their times beside the bound.
+     100,000 x 256; their times beside the bound;
+  8. training: the attention kernel at head dims 4, 16 and 64 (zero-padded
+     to its widths 32 and 64) against its plain version, f32 and bf16; one
+     train step of the seeded full-width attention model on the card held
+     against the same step on the CPU (B = 8, T = 64, ragged masks, the
+     same extract draws, dropout off, TF32 off), with K1 launched 0 times
+     in the train forward and a nonzero grad on every in_proj weight;
+     train steps/s at B = 64, T = 64 (attention f32 and bf16, with and
+     without --fast_extracts) and for the 3D model at B = 128 x 128-frame
+     windows, with peak memory and one torch.profiler window; the train
+     CLI on a 16-video mp4 corpus for 2 epochs (artifacts, K1 launched in
+     validation and not in the train steps), a resume from last.ckpt, and
+     a scan of the corpus with its best.ckpt on the card.
 
-Neither of the last two paths has a hand-written kernel (cuDNN runs the 3D
-convs, cuBLAS the similarity matmuls, as XLA does in the JAX package); their
-runs hold every kernel's launch count at zero.
+Neither the 3D nor the index path has a hand-written kernel (cuDNN runs the
+3D convs, cuBLAS the similarity matmuls, as XLA does in the JAX package);
+their runs hold every kernel's launch count at zero. Train-mode attention
+is plain torch math, as in the JAX package; K1 runs in validation.
 
 The second-to-last line is {"kernels": [...]}, one entry per kernel of the
 path; the last line is {"ok": true, "device": {...}}. Needs no network.
@@ -92,13 +105,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def attention_bound_ms(BH: int, T: int, dtype_name: str, mask_bytes: int):
+def attention_bound_ms(BH: int, T: int, dtype_name: str, mask_bytes: int,
+                       head_dim: int = HEAD_DIM):
     """Least time for one attention call: q, k, v read once and o written
     once (+ the key mask) at HBM rate, vs 4*BH*T^2*D operations at the peak
-    rate for the inputs' type."""
+    rate for the inputs' type (D the true head dim, before any padding)."""
     elt = 4 if dtype_name == "float32" else 2
-    nbytes = 4 * BH * T * HEAD_DIM * elt + mask_bytes
-    flops = 4 * BH * T * T * HEAD_DIM
+    nbytes = 4 * BH * T * head_dim * elt + mask_bytes
+    flops = 4 * BH * T * T * head_dim
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -264,6 +278,18 @@ def _seeded_clip(rng, t: int) -> np.ndarray:
     speed = int(rng.integers(1, 4))
     cols = (np.arange(64)[None, :] + speed * np.arange(t)[:, None]) % 64
     return np.ascontiguousarray(image[:, cols].transpose(1, 0, 2, 3))
+
+
+def _ragged_mask(torch, T: int, rng_torch):
+    """(BATCH, T) key mask on the card: ragged rows, row 0 full, row 1 with
+    its first key tile masked (T > 64), the last row fully masked."""
+    lengths = torch.randint(1, T + 1, (BATCH,), device="cuda", generator=rng_torch)
+    lengths[0] = T
+    mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+    if T > 64:
+        mask[1] = torch.arange(T, device="cuda") >= 64
+    mask[-1] = False
+    return mask
 
 
 def _seeded_clips(rng, n_per_bucket: int = 40, copies: int = 4):
@@ -1020,6 +1046,300 @@ def phase_index(torch, workdir: Path, model_path: Path):
           "k": 20, "search": search})
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_HEAD_DIMS = (4, 16, 64)
+TRAIN_B, TRAIN_T = 64, 64       # the timed train steps
+CHECK_B, CHECK_T = 8, 64        # the card step held against the CPU step
+TRAIN_LR, TRAIN_TOTAL_STEPS, TRAIN_CHECK_STEP = 1e-4, 10, 5
+# the CPU's f32 BatchNorm backward sums 10^5-10^6 values per channel in an
+# order that depends on its thread count, which moves the grads by up to a
+# few 1e-3 of their norm; the loss and the running statistics are forward
+# sums
+STEP_TOL = {"loss": 1e-4, "grad_norm": 5e-3, "grads": 2e-2, "bn": 1e-4}
+TIMED_STEPS, WARM_STEPS = 10, 3
+
+
+def _train_head_dims(torch):
+    """K1 at head dims 4, 16 and 64 (B = 64 videos x 8 heads, T = 128, f32
+    and bf16, a ragged mask with a leading-masked and a fully masked row)
+    against its plain version; device time beside the bound at the true D."""
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for D in TRAIN_HEAD_DIMS:
+            T = 128
+            q, k, v = (torch.randn((BATCH, HEADS, T, D), device="cuda", generator=g).to(dtype)
+                       for _ in range(3))
+            mask = _ragged_mask(torch, T, g)
+            bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
+            before = attn.launches
+            out = attn.multihead_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            require(attn.launches == before + 1, f"D={D}: no kernel launch")
+            with full_fp32():
+                plain = attn._attention_torch(q, k, v, bias)
+            err = (out.float() - plain.float()).abs().max().item()
+            require(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                    f"{dname} D={D}: bad output")
+            require(err <= TOLERANCE[dname], f"{dname} D={D}: max abs err {err}")
+            kernel_ms = graph_ms(lambda: attn.multihead_attention(q, k, v, mask))
+            with full_fp32():
+                plain_ms = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
+            bound_ms, bound_by = attention_bound_ms(BATCH * HEADS, T, dname, mask.numel(), D)
+            rows.append({"dtype": dname, "D": D, "T": T, "kernel_width": attn.kernel_width(D),
+                         "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            emit({"phase": "train", "check": "head_dim", **rows[-1]})
+    return rows
+
+
+def _train_batch(torch, rng, B: int, T: int, device):
+    """Seeded uint8 64x64 clip pairs with ragged lengths (zero padding and
+    masks), video ids with repeats (triplets have positives)."""
+    clips = np.zeros((2, B, T, 64, 64, 3), np.uint8)
+    masks = np.zeros((2, B, T), bool)
+    for side in range(2):
+        for i in range(B):
+            t = T if i == 0 else int(rng.integers(T // 2, T + 1))
+            clips[side, i, :t] = _seeded_clip(rng, t)
+            masks[side, i, :t] = True
+    ids = np.arange(B, dtype=np.int32) % max(1, B - B // 4)
+    batch = {"clip1": clips[0], "clip2": clips[1], "mask1": masks[0], "mask2": masks[1],
+             "video_id": ids}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _train_setup(torch, model_type: str, device, dropout: bool = True, **step_kwargs):
+    """A seeded full-width model on `device`, its AdamW and train step."""
+    from video_fingerprint_tpu_torch.models import create_model
+    from video_fingerprint_tpu_torch.training.optim import make_optimizer
+    from video_fingerprint_tpu_torch.training.train_step import make_train_step
+
+    torch.manual_seed(SEED)
+    model = create_model(model_type, frame_stride=STRIDE_3D).to(device)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    opt = make_optimizer(model_type, model, TRAIN_LR, total_steps=TRAIN_TOTAL_STEPS,
+                         epochs=2, steps_per_epoch=TRAIN_TOTAL_STEPS // 2)
+    return model, opt, make_train_step(model, opt, model_type, **step_kwargs)
+
+
+def _train_card_vs_cpu(torch):
+    """One train step of the seeded full-width attention model on the card
+    and on the CPU, from the same weights, batch (B = 8, T = 64, ragged
+    masks) and extract draws, dropout off, f32 with TF32 off, at step 5 of
+    a 10-step schedule (LR 1e-4 x group factor, the optimizer's first
+    update). Loss within 1e-4 and grad norm within 5e-3 relative, the
+    clipped grads within 2e-2 relative in global L2 norm, BN running
+    statistics within 1e-4 relative; params: AdamW's first update is
+    LR x g / (|g| + 1e-8), which turns a small grad's rounding into a
+    step anywhere between -LR and LR, so every element within twice its
+    group's LR (the count past 1e-3 LR is reported). The train forward
+    launches K1 0 times, and every block's in_proj weight gets a nonzero
+    grad."""
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.training.optim import param_group_label
+    from video_fingerprint_tpu_torch.training.train_step import draw_extracts
+
+    rng = np.random.default_rng(SEED + 2)
+    batch = _train_batch(torch, rng, CHECK_B, CHECK_T, "cpu")
+    draws = draw_extracts(torch.Generator().manual_seed(SEED), CHECK_B, CHECK_T, 0.5)
+    outs, models, grads = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model, opt, step = _train_setup(torch, "attention", device, dropout=False)
+        before = attn.launches
+        out = step({k: v.to(device) for k, v in batch.items()}, draws, TRAIN_CHECK_STEP)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            require(attn.launches == before, "the train forward launched the attention kernel")
+            for i, block in enumerate(model.attention_blocks):
+                grad = block.attn.in_proj_weight.grad
+                require(grad is not None and bool((grad != 0).any()),
+                        f"attention_blocks.{i}.attn.in_proj_weight has no grad")
+        outs[device] = {k: float(v) for k, v in out.items()}
+        params = {k for k, _ in model.named_parameters()}
+        models[device] = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                          if k in params or "running_" in k}
+        grads[device] = torch.cat([p.grad.detach().cpu().double().ravel()
+                                   for p in model.parameters()])
+        lrs = {g["label"]: g["lr"] for g in opt.param_groups}
+    rel = {k: abs(outs["cuda"][k] - outs["cpu"][k]) / abs(outs["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    worst, past, total, bn_worst = 0.0, 0, 0, 0.0  # param gaps in units of their LR
+    for key, cpu in models["cpu"].items():
+        diff = (models["cuda"][key] - cpu).abs()
+        if "running_" in key:
+            bn_worst = max(bn_worst, float((diff / cpu.abs().clamp_min(1.0)).max()))
+            continue
+        lr = lrs[param_group_label(key)]
+        worst = max(worst, float(diff.max()) / lr)
+        past += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    rel["grads"] = float(torch.linalg.vector_norm(grads["cuda"] - grads["cpu"])
+                         / torch.linalg.vector_norm(grads["cpu"]))
+    result = {"card": outs["cuda"], "cpu": outs["cpu"], "rel_gap": rel, "lrs": lrs,
+              "param_max_gap_in_lr": worst, "params_past_1e-3_lr": past,
+              "param_elements": total,
+              "bn_rel_gap": bn_worst, "attention_launches_in_train": 0}
+    emit({"phase": "train", "check": "card_vs_cpu", **result})
+    for k, r in rel.items():
+        require(r <= STEP_TOL[k], f"card vs CPU step: {k} relative gap {r}")
+    require(bn_worst <= STEP_TOL["bn"], f"card vs CPU BN running statistics gap {bn_worst}")
+    require(worst <= 2.001, f"card vs CPU params: max gap {worst} LR")
+    return result
+
+
+def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast: bool,
+                       profile: bool = False):
+    """Train steps per second at full width on seeded ragged clips: WARM_STEPS
+    steps, then TIMED_STEPS on the host clock ending in a synchronize (the
+    extract draws are made on the host and copied per step, as the trainer
+    does); peak device memory; K1 launches (0 expected)."""
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.training.train_step import draw_extracts
+
+    rng = np.random.default_rng(SEED + 3)
+    batch = _train_batch(torch, rng, B, T, "cuda")
+    if model_type != "attention":
+        batch = {k: v for k, v in batch.items() if not k.startswith("mask")}
+    model, _, step = _train_setup(torch, model_type, "cuda", bf16=bf16,
+                                  reuse_extract_features=fast)
+    gen = torch.Generator().manual_seed(SEED)
+    draws = (lambda: draw_extracts(gen, B, T, 0.5)) if model_type == "attention" else (
+        lambda: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = attn.launches
+    n = 0
+    for _ in range(WARM_STEPS):
+        out = step(batch, draws(), n)
+        n += 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        out = step(batch, draws(), n)
+        n += 1
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    loss = float(out["loss"])
+    require(np.isfinite(loss), f"{model_type} bf16={bf16} fast={fast}: loss {loss}")
+    require(attn.launches == before, "a train step launched the attention kernel")
+    row = {"model": model_type, "B": B, "T": T, "dtype": "bfloat16" if bf16 else "float32",
+           "fast_extracts": fast, "steps_per_s": TIMED_STEPS / seconds,
+           "ms_per_step": seconds / TIMED_STEPS * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "last_loss": loss}
+    if profile:
+        row["profile"] = _kernel_times(torch, lambda: step(batch, draws(), n), top=8)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "check": "steps", **row})
+    return row
+
+
+def _train_cli(torch, workdir: Path):
+    """The train CLI on the card on a seeded mp4 corpus (16 videos), 2 epochs:
+    the run-dir artifacts, K1 launched in validation and not in the train
+    steps, a resume from last.ckpt at the next epoch with the step counter
+    carried, and a scan of the corpus on the card with best.ckpt."""
+    import os
+
+    from video_fingerprint_tpu_torch.cli.train import main
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.training import checkpoint as ckpt
+    from video_fingerprint_tpu_torch.training.trainer import Trainer
+    from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
+
+    videos = workdir / "train_videos"
+    make_corpus(videos, num_unique=14, num_frames=40, duplicates=2)
+    counts = {"train_epoch": 0, "validate": 0}
+    originals = {name: getattr(Trainer, name) for name in counts}
+
+    def counted(name):
+        def run(self, *args, **kwargs):
+            before = attn.launches
+            out = originals[name](self, *args, **kwargs)
+            counts[name] += attn.launches - before
+            return out
+        return run
+
+    args = ["--data_dir", str(videos), "--batch_size", "4", "--num_workers", "4",
+            "--max_frames", "64"]
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        for name in counts:
+            setattr(Trainer, name, counted(name))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = main(args + ["--epochs", "2", "--run_name", "smoke"])
+        first_s = time.perf_counter() - t0
+        require(rc == 0, f"train CLI exited {rc}")
+        run = workdir / "runs" / "smoke"
+        for name in ("config.json", "training_info.txt", "training_log.txt",
+                     "training_summary.txt", "checkpoints/last.ckpt", "checkpoints/best.ckpt",
+                     "checkpoints/best_metrics.json", "checkpoints/epoch_0.ckpt"):
+            require((run / name).exists(), f"train CLI left no {name}")
+        require(counts["validate"] > 0, "validation did not launch the attention kernel")
+        require(counts["train_epoch"] == 0, "the train steps launched the attention kernel")
+        last = ckpt.load_checkpoint(run / "checkpoints/last.ckpt")["train"]
+        steps_per_epoch = last["global_step"] // 2
+        require(last["epoch"] == 1 and steps_per_epoch > 0, f"last.ckpt counters {last}")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = main(args + ["--epochs", "3", "--run_name", "smoke_resume",
+                              "--checkpoint", str(run / "checkpoints/last.ckpt")])
+        require(rc == 0 and "Resumed from epoch 2" in out.getvalue(), "resume did not run")
+        resumed = ckpt.load_checkpoint(workdir / "runs/smoke_resume/checkpoints/last.ckpt")
+        require(resumed["train"]["epoch"] == 2
+                and resumed["train"]["global_step"] == 3 * steps_per_epoch,
+                f"resumed counters {resumed['train']}")
+    finally:
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+        os.chdir(cwd)
+    before = attn.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        scanner = FingerprintScanner(str(run / "checkpoints/best.ckpt"), device="cuda",
+                                     batch_size=8)
+        fps = scanner.scan_directory(videos, num_workers=4)
+    torch.cuda.synchronize()
+    E = np.stack([fp["embedding"] for fp in fps.values()])
+    require(len(fps) == 16 and bool(np.isfinite(E).all())
+            and float(np.abs(np.linalg.norm(E, axis=1) - 1).max()) < 1e-5,
+            "best.ckpt scan: bad fingerprints")
+    require(attn.launches > before, "the scan of best.ckpt did not launch the kernel")
+    val = json.loads((run / "checkpoints/best_metrics.json").read_text())["val"]
+    return {"videos": 16, "epochs": 2, "steps_per_epoch": steps_per_epoch,
+            "first_run_s": first_s, "attention_launches": dict(counts),
+            "resumed_epoch": resumed["train"]["epoch"],
+            "resumed_global_step": resumed["train"]["global_step"],
+            "val_auc_roc": val.get("auc_roc"), "scan_videos": len(fps)}
+
+
+def phase_train(torch, workdir: Path, smi: str):
+    """Training on the card: K1 at the head dims training configs use, the
+    card's train step against the CPU's, steps/s in five configurations,
+    the train CLI with validation, resume and a scan of its best.ckpt."""
+    t0 = time.perf_counter()
+    head_dims = _train_head_dims(torch)
+    check = _train_card_vs_cpu(torch)
+    configs = [("attention", TRAIN_B, TRAIN_T, bf16, fast)
+               for bf16 in (False, True) for fast in (False, True)]
+    configs.append(("3d", 2 * TRAIN_B, CLIP_LENGTH, False, False))
+    speed = [_train_steps_per_s(torch, *c, profile=(c == configs[0])) for c in configs]
+    cli = _train_cli(torch, workdir)
+    emit({"phase": "train", "smi": smi, "head_dims": head_dims, "card_vs_cpu": check,
+          "steps": speed, "cli": cli, "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -1036,6 +1356,7 @@ def main() -> int:
         conv = phase_convblock(torch, model_path)
         phase_scan3d(torch, Path(tmp))
         phase_index(torch, Path(tmp), model_path)
+        phase_train(torch, Path(tmp), smi)
     main_case = att[("float32", 128)]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of video_fingerprint_tpu_torch imports jax,
 the JAX package, ml_dtypes, cv2 or av at import time (the 3D model, the
-index and the scan cache among them), and chip_smoke.py refuses to run
-without a card."""
+index, the scan cache and the training modules among them), and
+chip_smoke.py refuses to run without a card."""
 
 import subprocess
 import sys
@@ -22,8 +22,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "video_fingerprint_tpu"))
 print(len(names), bad)
-assert len(names) >= 19, names
-for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.device"):
+assert len(names) >= 29, names
+for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.device",
+             "config", "ops.losses", "ops.metrics", "training.optim", "training.train_step",
+             "training.trainer", "cli.train", "data.dataset", "data.augment", "data.pairs"):
     assert pkg.__name__ + "." + name in names, name
 bad += sorted(m for m in sys.modules if m.split(".")[0] == "ml_dtypes")
 assert not bad, bad

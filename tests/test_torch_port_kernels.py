@@ -112,6 +112,48 @@ def test_attention_kernel_flat_layout():
     assert torch.equal(out, ref)
 
 
+@pytest.fixture
+def card():
+    """Skips the test without an NVIDIA card (decided when the test runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [4, 16, 48, 64])
+def test_attention_kernel_head_dims(card, D, dtype):
+    """Head dims other than 32: zero-padded to the kernel's width 32 (D = 4,
+    16) or 64 (D = 48, and D = 64 unpadded), against the plain version at
+    the true D, at T from one frame past two key tiles."""
+    for T in (1, 65, 128, 500):
+        _check_attention(*_inputs(T, dtype, D=D), ATTENTION_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_attention_kernel_refuses_head_dim_96(card):
+    q, k, v, mask = _inputs(16, torch.float32, D=96)
+    before = attn.launches
+    with pytest.raises(ValueError, match="head dims up to 64"):
+        attn.multihead_attention(q, k, v, mask)
+    assert attn.launches == before
+
+
+@pytest.mark.gpu
+def test_attention_kernel_refuses_grad(card):
+    """The kernel has no backward: a q that requires grad raises (a silent
+    launch would cut attention out of the graph); under no_grad it runs."""
+    q, k, v, mask = _inputs(32, torch.float32)
+    q.requires_grad_(True)
+    before = attn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        attn.multihead_attention(q, k, v, mask)
+    assert attn.launches == before
+    with torch.no_grad():
+        attn.multihead_attention(q, k, v, mask)
+    assert attn.launches == before + 1
+
+
 def _conv_inputs(n, dtype=torch.bfloat16, frames=None):
     """Seeded x (64, 16, 16, n), w2d (128, 576) and b (128, 1) on the card;
     with `frames`, x is the first n frames of a (64, 16, 16, frames) tensor."""

@@ -3,9 +3,13 @@
 //
 // Replaces the TPU kernel video_fingerprint_tpu/ops/attention.py::_attn_kernel
 // (entered through fused_attention / multihead_attention). Per (batch, head)
-// instance, with D = 32 and any number of frames T >= 1:
+// instance, with a head width D of 32 or 64 and any number of frames T >= 1:
 //
-//   s = q . k^T / sqrt(D) + bias        f32; bias 0 for a valid key and
+//   s = q . k^T * scale + bias          f32; scale = 1 / sqrt(D_true), where
+//                                       the wrapper zero-pads a head of
+//                                       D_true < D columns (zero columns
+//                                       leave q . k^T unchanged);
+//                                       bias 0 for a valid key and
 //                                       finfo(f32).min / 2 for a masked one
 //   p = softmax(s) over the keys        f32
 //   o = p.astype(v.dtype) . v           f32 accumulation, stored in q's dtype
@@ -14,7 +18,7 @@
 // weights (the mean of v), not NaN. The scanner pads partial batches with
 // such rows.
 //
-// What bounds it on an H100, at the scan's shape (B = 64 videos, 8 heads):
+// What bounds it on an H100, at the scan's shape (B = 64 videos, 8 heads, D = 32):
 // the work is 4 * BH * T^2 * D operations against 4 * BH * T * D elements of
 // q/k/v/o traffic, i.e. T operations per element.
 //   - float32 runs on the CUDA cores in full f32 (the scan's parity with the
@@ -80,6 +84,13 @@
 // q, k, v and o are addressed through (batch, head, time) strides, so the
 // model hands over views of its fused qkv projection without copies and
 // receives o already in (B, T, H, D) order.
+//
+// Head width. Every kernel is a template on D (32 or 64); the register tiles
+// grow with it: in f32 a thread owns 4 output columns per 32 (4 tx + 32 g),
+// in bf16 a warp reads Q's A fragments per 16 columns and K's B fragments
+// per 32, and P.V has D / 8 accumulator tiles. At D = 64 the f32 tiles take
+// 104 KB of shared memory (two blocks per SM), so its register limit is the
+// one of two blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +100,6 @@
 
 namespace {
 
-constexpr int kHeadDim = 32;
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps of 16 query rows
@@ -158,14 +168,14 @@ __device__ __forceinline__ float component(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Rows row0 .. row0 + 63 of one (T, 32) operand -> a shared tile with a row
+// Rows row0 .. row0 + 63 of one (T, D) operand -> a shared tile with a row
 // stride of kRow elements. Rows >= T are zeros.
-template <typename Elem, int kRow, bool kAligned>
+template <typename Elem, int D, int kRow, bool kAligned>
 __device__ __forceinline__ void load_rows(Elem* dst, const Elem* src, long long st, int row0,
                                           int T) {
   if (kAligned) {
     constexpr int kChunk = 16 / sizeof(Elem);  // elements per 16-byte copy
-    constexpr int kChunks = kHeadDim / kChunk;
+    constexpr int kChunks = D / kChunk;
     for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
       const int r = i / kChunks;
       const int c = i % kChunks;
@@ -174,9 +184,9 @@ __device__ __forceinline__ void load_rows(Elem* dst, const Elem* src, long long 
                  valid ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kBK * kHeadDim; i += kThreads) {
-      const int r = i / kHeadDim;
-      const int d = i % kHeadDim;
+    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+      const int r = i / D;
+      const int d = i % D;
       dst[r * kRow + d] = row0 + r < T ? src[(row0 + r) * st + d] : Elem(0);
     }
   }
@@ -229,10 +239,18 @@ struct Instance {
 
 // ---------------------------------------------------------------- float32
 
-constexpr int kRowF = kHeadDim + 4;  // 36 floats
-constexpr int kRowP = kBK + 8;       // 72 floats: a warp's 32 scalar p stores hit 32 banks
+// Blocks per SM the register limit is set for: the D = 64 f32 tiles leave
+// room for two.
+template <int D>
+constexpr int kMinBlocks = D == 32 ? 4 : 2;
 
+template <int D>
+constexpr int kRowFOf = D + 4;  // 36 / 68 floats
+constexpr int kRowP = kBK + 8;  // 72 floats: a warp's 32 scalar p stores hit 32 banks
+
+template <int D>
 struct SmemF32 {
+  static constexpr int kRowF = kRowFOf<D>;
   float q[kBQ * kRowF];
   float k[2][kBK * kRowF];
   float v[2][kBK * kRowF];
@@ -240,17 +258,19 @@ struct SmemF32 {
   float bias[2][kBK];
 };
 
-template <bool kAligned>
-__global__ void __launch_bounds__(kThreads, 4)
+template <int D, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 attention_f32(Params p, float scale) {
+  constexpr int kRowF = kRowFOf<D>;
+  constexpr int kCG = D / 32;  // groups of 4 output columns per thread
   extern __shared__ float4 smem_f32[];
-  SmemF32& sm = *reinterpret_cast<SmemF32*>(smem_f32);
+  SmemF32<D>& sm = *reinterpret_cast<SmemF32<D>*>(smem_f32);
   const int T = p.T;
   const Instance<float> in(p);
 
-  load_rows<float, kRowF, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
-  load_rows<float, kRowF, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
-  load_rows<float, kRowF, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
+  load_rows<float, D, kRowF, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
+  load_rows<float, D, kRowF, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
+  load_rows<float, D, kRowF, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
   KeyBias key_bias{in.mask, T};
   key_bias.fetch(0);
   key_bias.store(sm.bias[0], 0);
@@ -261,7 +281,7 @@ attention_f32(Params p, float scale) {
   const int ty = lane / 8;
   const int tx = lane % 8;
   const int rbase = (threadIdx.x / 32) * 16 + ty;  // rows rbase + 4 i of the tile
-  float o[4][4];
+  float o[4][4 * kCG];
   float m[4];
   float l[4];
 #pragma unroll
@@ -269,14 +289,14 @@ attention_f32(Params p, float scale) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[i][c] = 0.0f;
+    for (int c = 0; c < 4 * kCG; ++c) o[i][c] = 0.0f;
   }
 
   for (int t = 0; t < in.ntiles; ++t) {
     if (t + 1 < in.ntiles) {
       const int next = (t + 1) & 1;
-      load_rows<float, kRowF, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
-      load_rows<float, kRowF, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
+      load_rows<float, D, kRowF, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
+      load_rows<float, D, kRowF, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
       key_bias.store(sm.bias[next], (t + 1) * kBK);
       key_bias.fetch((t + 2) * kBK);
       cp_async_commit();
@@ -296,7 +316,7 @@ attention_f32(Params p, float scale) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
 #pragma unroll 1  // unrolled further, the f32 instances spill at 128 registers
-    for (int d = 0; d < kHeadDim; d += 4) {
+    for (int d = 0; d < D; d += 4) {
       float4 qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -340,11 +360,11 @@ attention_f32(Params p, float scale) {
       }
       l[i] = l[i] * alpha + sum;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[i][c] *= alpha;
+      for (int c = 0; c < 4 * kCG; ++c) o[i][c] *= alpha;
     }
     __syncwarp();
 
-    // O += P.V for rows rbase + 4 i and columns 4 tx .. 4 tx + 3
+    // O += P.V for rows rbase + 4 i and columns 32 g + 4 tx .. 32 g + 4 tx + 3
 #pragma unroll 2
     for (int j = 0; j < kBK; j += 4) {
       float4 pv[4];
@@ -353,14 +373,18 @@ attention_f32(Params p, float scale) {
         pv[i] = *reinterpret_cast<const float4*>(prow + 4 * i * kRowP + j);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + (j + u) * kRowF + 4 * tx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pij = component(pv[i], u);
-          o[i][0] = fmaf(pij, vv.x, o[i][0]);
-          o[i][1] = fmaf(pij, vv.y, o[i][1]);
-          o[i][2] = fmaf(pij, vv.z, o[i][2]);
-          o[i][3] = fmaf(pij, vv.w, o[i][3]);
+        for (int g = 0; g < kCG; ++g) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vs + (j + u) * kRowF + 32 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pij = component(pv[i], u);
+            o[i][4 * g + 0] = fmaf(pij, vv.x, o[i][4 * g + 0]);
+            o[i][4 * g + 1] = fmaf(pij, vv.y, o[i][4 * g + 1]);
+            o[i][4 * g + 2] = fmaf(pij, vv.z, o[i][4 * g + 2]);
+            o[i][4 * g + 3] = fmaf(pij, vv.w, o[i][4 * g + 3]);
+          }
         }
       }
     }
@@ -373,42 +397,51 @@ attention_f32(Params p, float scale) {
     for (int off = 1; off < 8; off *= 2) l[i] += __shfl_xor_sync(kFull, l[i], off);
     const int row = in.row0 + rbase + 4 * i;
     if (row >= T) continue;
-    float* dst = in.o + row * p.o_st + 4 * tx;
-    const float4 out = make_float4(o[i][0] / l[i], o[i][1] / l[i], o[i][2] / l[i],
-                                   o[i][3] / l[i]);
-    if (kAligned) {
-      *reinterpret_cast<float4*>(dst) = out;
-    } else {
-      dst[0] = out.x;
-      dst[1] = out.y;
-      dst[2] = out.z;
-      dst[3] = out.w;
+#pragma unroll
+    for (int g = 0; g < kCG; ++g) {
+      float* dst = in.o + row * p.o_st + 32 * g + 4 * tx;
+      const float4 out = make_float4(o[i][4 * g] / l[i], o[i][4 * g + 1] / l[i],
+                                     o[i][4 * g + 2] / l[i], o[i][4 * g + 3] / l[i]);
+      if (kAligned) {
+        *reinterpret_cast<float4*>(dst) = out;
+      } else {
+        dst[0] = out.x;
+        dst[1] = out.y;
+        dst[2] = out.z;
+        dst[3] = out.w;
+      }
     }
   }
 }
 
 // --------------------------------------------------------------- bfloat16
 
-constexpr int kRowH = kHeadDim + 8;  // 40 bf16 = 80 B: an ldmatrix phase's 8 rows hit 8 bank groups
+// 40 / 72 bf16 = 80 / 144 B: an ldmatrix phase's 8 rows hit 8 bank groups
+template <int D>
+constexpr int kRowHOf = D + 8;
 
+template <int D>
 struct SmemBf16 {
+  static constexpr int kRowH = kRowHOf<D>;
   uint16_t q[kBQ * kRowH];
   uint16_t k[2][kBK * kRowH];
   uint16_t v[2][kBK * kRowH];
   float bias[2][kBK];
 };
 
-template <bool kAligned>
-__global__ void __launch_bounds__(kThreads, 4)
+template <int D, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 attention_bf16(Params p, float scale) {
+  constexpr int kRowH = kRowHOf<D>;
+  constexpr int kN = D / 8;  // accumulator tiles of O
   extern __shared__ float4 smem_bf16[];
-  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(smem_bf16);
+  SmemBf16<D>& sm = *reinterpret_cast<SmemBf16<D>*>(smem_bf16);
   const int T = p.T;
   const Instance<uint16_t> in(p);
 
-  load_rows<uint16_t, kRowH, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
-  load_rows<uint16_t, kRowH, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
-  load_rows<uint16_t, kRowH, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
+  load_rows<uint16_t, D, kRowH, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
+  load_rows<uint16_t, D, kRowH, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
+  load_rows<uint16_t, D, kRowH, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
   KeyBias key_bias{in.mask, T};
   key_bias.fetch(0);
   key_bias.store(sm.bias[0], 0);
@@ -419,20 +452,20 @@ attention_bf16(Params p, float scale) {
   const int warp = threadIdx.x / 32;
   const int g = lane >> 2;  // accumulator rows g and g + 8 of the warp's 16
   const int t4 = lane & 3;  // accumulator columns 2 t4, 2 t4 + 1 of each 8
-  uint32_t qa[2][4];        // Q's A fragments, d 0..15 and 16..31
-  float o[4][4];            // O's accumulators, d tiles of 8
+  uint32_t qa[D / 16][4];   // Q's A fragments, d 16 kk .. 16 kk + 15
+  float o[kN][4];           // O's accumulators, d tiles of 8
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[n][r] = 0.0f;
 
   for (int t = 0; t < in.ntiles; ++t) {
     if (t + 1 < in.ntiles) {
       const int next = (t + 1) & 1;
-      load_rows<uint16_t, kRowH, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
-      load_rows<uint16_t, kRowH, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
+      load_rows<uint16_t, D, kRowH, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
+      load_rows<uint16_t, D, kRowH, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
       key_bias.store(sm.bias[next], (t + 1) * kBK);
       key_bias.fetch((t + 2) * kBK);
       cp_async_commit();
@@ -443,7 +476,7 @@ attention_bf16(Params p, float scale) {
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         ldmatrix_x4(qa[kk], sm.q + (warp * 16 + (lane & 15)) * kRowH + kk * 16 + (lane >> 4) * 8);
     }
     const uint16_t* ks = sm.k[t & 1];
@@ -451,16 +484,20 @@ attention_bf16(Params p, float scale) {
     const float* bias = sm.bias[t & 1];
 
     // S = Q.K^T: 8 key tiles of 8; one ldmatrix gives a key tile's B
-    // fragments for d 0..15 (b[0], b[1]) and 16..31 (b[2], b[3])
+    // fragments for d 32 dd .. + 15 (b[0], b[1]) and 32 dd + 16 .. + 31
+    // (b[2], b[3])
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[n][r] = 0.0f;
-      uint32_t b[4];
-      ldmatrix_x4(b, ks + (n * 8 + (lane & 7)) * kRowH + (lane >> 3) * 8);
-      mma_bf16(s[n], qa[0], b[0], b[1]);
-      mma_bf16(s[n], qa[1], b[2], b[3]);
+#pragma unroll
+      for (int dd = 0; dd < D / 32; ++dd) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (n * 8 + (lane & 7)) * kRowH + dd * 32 + (lane >> 3) * 8);
+        mma_bf16(s[n], qa[2 * dd], b[0], b[1]);
+        mma_bf16(s[n], qa[2 * dd + 1], b[2], b[3]);
+      }
     }
 
     // online softmax; s[n][0..1] are row g, s[n][2..3] row g + 8, and a
@@ -491,7 +528,7 @@ attention_bf16(Params p, float scale) {
         l[r >> 1] += s[n][r];
       }
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < kN; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -508,7 +545,7 @@ attention_bf16(Params p, float scale) {
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, vs + (kk * 16 + (lane & 15)) * kRowH + dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], a, b[0], b[1]);
@@ -526,7 +563,7 @@ attention_bf16(Params p, float scale) {
     if (row >= T) continue;
     uint16_t* dst = in.o + row * p.o_st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < kN; ++n) {
       const uint32_t pair = pack_bf16(o[n][2 * h] / l[h], o[n][2 * h + 1] / l[h]);
       if (kAligned) {
         *reinterpret_cast<uint32_t*>(dst + n * 8) = pair;
@@ -541,14 +578,23 @@ attention_bf16(Params p, float scale) {
 // ----------------------------------------------------------------- launch
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Params& p, long long blocks,
+cudaError_t launch(Kernel kernel, size_t smem, const Params& p, float scale, long long blocks,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kHeadDim)));
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_width(const Params& p, int dtype, bool aligned, float scale,
+                         long long blocks, cudaStream_t s) {
+  if (dtype == 1)
+    return aligned ? launch(attention_bf16<D, true>, sizeof(SmemBf16<D>), p, scale, blocks, s)
+                   : launch(attention_bf16<D, false>, sizeof(SmemBf16<D>), p, scale, blocks, s);
+  return aligned ? launch(attention_f32<D, true>, sizeof(SmemF32<D>), p, scale, blocks, s)
+                 : launch(attention_f32<D, false>, sizeof(SmemF32<D>), p, scale, blocks, s);
 }
 
 // Every row of the operand starts on a 16-byte boundary.
@@ -562,18 +608,21 @@ bool aligned16(const void* ptr, long long sb, long long sh, long long st, int el
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head
-// dimension (32) is contiguous. Any T >= 1. Returns the cudaError_t of the
-// launch.
+// dtype: 0 = float32, 1 = bfloat16. D, the head width of q, k, v and o, is
+// 32 or 64; scale is 1 / sqrt of the true head dim (columns past it are
+// zeros). Strides are in elements; the head dimension is contiguous. Any
+// T >= 1. Returns the cudaError_t of the launch.
 int vfp_attention_forward(const void* q, const void* k, const void* v,
-                          const void* mask, void* o, int B, int H, int T, int dtype,
+                          const void* mask, void* o, int B, int H, int T, int D,
+                          int dtype, float scale,
                           long long q_sb, long long q_sh, long long q_st,
                           long long k_sb, long long k_sh, long long k_st,
                           long long v_sb, long long v_sh, long long v_st,
                           long long o_sb, long long o_sh, long long o_st,
                           void* stream) {
   const long long blocks = (long long)((T + kBQ - 1) / kBQ) * B * H;
-  if (T < 1 || B < 1 || H < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || H < 1 || (D != 32 && D != 64) || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   Params p{q, k, v, static_cast<const uint8_t*>(mask), o, B, H, T,
            q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st};
   const int elem = dtype == 1 ? 2 : 4;
@@ -582,13 +631,8 @@ int vfp_attention_forward(const void* q, const void* k, const void* v,
                        aligned16(v, v_sb, v_sh, v_st, elem) &&
                        aligned16(o, o_sb, o_sh, o_st, elem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1)
-    err = aligned ? launch(attention_bf16<true>, sizeof(SmemBf16), p, blocks, s)
-                  : launch(attention_bf16<false>, sizeof(SmemBf16), p, blocks, s);
-  else
-    err = aligned ? launch(attention_f32<true>, sizeof(SmemF32), p, blocks, s)
-                  : launch(attention_f32<false>, sizeof(SmemF32), p, blocks, s);
+  const cudaError_t err = D == 32 ? launch_width<32>(p, dtype, aligned, scale, blocks, s)
+                                  : launch_width<64>(p, dtype, aligned, scale, blocks, s);
   return (int)err;
 }
 

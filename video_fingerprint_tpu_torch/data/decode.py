@@ -1,15 +1,16 @@
-"""Video decode for the scan (host side).
+"""Video decode for the scan and the training pipeline (host side).
 
-A copy of the scan's decode in video_fingerprint_tpu/data/decode.py, with
-the codec packages imported inside the functions that use them, so the
-scanner imports on a machine without OpenCV:
+A copy of video_fingerprint_tpu/data/decode.py, with the codec packages
+imported inside the functions that use them, so the port imports on a
+machine without OpenCV:
 
   - "pyav":   PyAV, used when importable (the reference's decoder);
   - "opencv": cv2.VideoCapture (ffmpeg inside the wheel) otherwise.
 
 Frames are RGB24 uint8. A decode failure gives an empty list in the
-attention scan (fingerprint.py:105-107) and a clip padded with black
-480x640 frames in the 3D scan's windows (dataset.py:160-195).
+attention scan (fingerprint.py:105-107), a clip padded with black 480x640
+frames in the 3D scan's windows (dataset.py:160-195), and 30 black frames
+in training (dataset.py:151-153, `black_fallback_frames`).
 """
 
 from __future__ import annotations
@@ -133,31 +134,39 @@ def _decode_clip_cv2(path, start_frame, num_frames) -> List[np.ndarray]:
     return frames
 
 
-def decode_subsampled(path: Path | str, max_frames: int) -> List[np.ndarray]:
-    """Decode every skip-th frame up to `max_frames` frames, skip =
-    max(1, total // max_frames): the reference's subsampling policy
-    (fingerprint.py:90-91). Skipped frames are grabbed but not converted.
+def decode_subsampled(path: Path | str, max_frames: int,
+                      skip_rate: Optional[int] = None) -> List[np.ndarray]:
+    """Decode every skip-th frame up to `max_frames` frames. skip_rate=None
+    derives skip = max(1, total // max_frames), the reference's subsampling
+    policy (fingerprint.py:90-91, dataset.py:134); an explicit skip_rate
+    (the train-time speed jitter) wins outright. Skipped frames are grabbed
+    but not converted.
     """
     try:
         if default_backend() == "pyav":
-            return _decode_subsampled_av(path, max_frames)
-        return _decode_subsampled_cv2(path, max_frames)
+            return _decode_subsampled_av(path, max_frames, skip_rate)
+        return _decode_subsampled_cv2(path, max_frames, skip_rate)
     except Exception:  # an unreadable file decodes to nothing, as in the reference
         return []
 
 
-def _derive_skip(total: int, max_frames: int) -> int:
+def _derive_skip(total: int, max_frames: int, skip_rate: Optional[int]) -> int:
+    """An explicit skip_rate is kept even below total // max_frames: the
+    speed jitter's slow half (speed < 1) samples the first part of the video
+    densely and the max_frames cap truncates (reference dataset.py:128-134)."""
+    if skip_rate:
+        return max(1, skip_rate)
     return max(1, total // max_frames) if total > max_frames else 1
 
 
-def _decode_subsampled_cv2(path, max_frames) -> List[np.ndarray]:
+def _decode_subsampled_cv2(path, max_frames, skip_rate) -> List[np.ndarray]:
     import cv2
 
     cap = cv2.VideoCapture(str(path))
     if not cap.isOpened():
         return []
     total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-    skip = _derive_skip(total, max_frames)
+    skip = _derive_skip(total, max_frames, skip_rate)
     frames: List[np.ndarray] = []
     i = 0
     while len(frames) < max_frames:
@@ -173,7 +182,7 @@ def _decode_subsampled_cv2(path, max_frames) -> List[np.ndarray]:
     return frames
 
 
-def _decode_subsampled_av(path, max_frames) -> List[np.ndarray]:
+def _decode_subsampled_av(path, max_frames, skip_rate) -> List[np.ndarray]:
     import av
 
     container = av.open(str(path))
@@ -181,7 +190,7 @@ def _decode_subsampled_av(path, max_frames) -> List[np.ndarray]:
     total = stream.frames
     if total == 0 and stream.duration:
         total = int(stream.duration * stream.average_rate)
-    skip = _derive_skip(total, max_frames)
+    skip = _derive_skip(total, max_frames, skip_rate)
     frames: List[np.ndarray] = []
     for i, frame in enumerate(container.decode(stream)):
         if i % skip == 0:
@@ -190,3 +199,8 @@ def _decode_subsampled_av(path, max_frames) -> List[np.ndarray]:
                 break
     container.close()
     return frames
+
+
+def black_fallback_frames(n: int = 30) -> List[np.ndarray]:
+    """The training decode-failure fallback (reference dataset.py:151-153)."""
+    return [np.zeros((480, 640, 3), dtype=np.uint8) for _ in range(n)]

@@ -1,7 +1,7 @@
-"""Scan-time frame preprocessing (host side): resize, crop, stack, bucket.
+"""Frame preprocessing (host side): resize, crop, stack, bucket.
 
-A copy of the scan's part of video_fingerprint_tpu/data/preprocess.py, with
-cv2 imported inside the functions that use it. The resizes and crops are
+A copy of video_fingerprint_tpu/data/preprocess.py, with cv2 imported
+inside the functions that use it. The resizes and crops are
 bit-exact with the reference's scan (same cv2 calls, same integer
 arithmetic), which eval parity depends on: the attention scan's short-side
 resize and center crop, and the 3D scan's square center crop and resize.
@@ -9,7 +9,7 @@ resize and center crop, and the 3D scan's square center crop and resize.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -76,3 +76,10 @@ def bucket_for_length(t: int, buckets: Sequence[int]) -> int:
         if t <= b:
             return b
     return buckets[-1]
+
+
+def default_buckets(max_frames: int) -> List[int]:
+    """The length-bucket ladder bounded by max_frames (one compiled shape per
+    bucket in the JAX package; padding waste <= ~30 %)."""
+    ladder = [16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512]
+    return [b for b in ladder if b < max_frames] + [max_frames]

@@ -1,4 +1,4 @@
-"""Attention-based video fingerprint model, eval mode.
+"""Attention-based video fingerprint model.
 
 Port of video_fingerprint_tpu/models/attention.py (reference model.py:182-298):
 frame CNN -> temporal projection + positional encoding -> 2 multi-scale
@@ -10,7 +10,9 @@ reference exactly.
 
 The compute dtype is the parameters' dtype: `model.to(torch.bfloat16)`
 computes in bf16 as the JAX model does with dtype=jnp.bfloat16; the
-embedding is always returned in f32.
+embedding is always returned in f32. `model.train()` selects the train
+forward (batch statistics in BatchNorm, dropout, plain-math attention);
+`model.eval()` the scan's.
 """
 
 from __future__ import annotations
@@ -103,19 +105,29 @@ class VideoFingerprintAttention(nn.Module):
         norm = torch.linalg.vector_norm(embedding, dim=1, keepdim=True)
         return embedding / norm.clamp_min(1e-12)
 
-    def forward_flat(self, flat_frames: torch.Tensor, batch_size: int,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B*T, H, W, C) pre-flattened frames -> (B, embedding_dim).
-
-        uint8 frames are normalized by /255 on the device, in the compute
-        dtype. The (N, H, W, C) buffer is viewed as NCHW with channels-last
-        strides, which costs nothing.
-        """
+    def _encode_flat(self, flat_frames: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) frames -> (N, spatial_dim). uint8 frames are
+        normalized by /255 on the device, in the compute dtype. The
+        (N, H, W, C) buffer is viewed as NCHW with channels-last strides,
+        which costs nothing."""
         x = flat_frames.permute(0, 3, 1, 2)
         if x.dtype == torch.uint8:
             x = x.to(self.dtype) / 255.0
+        return self.spatial_encoder(x)
+
+    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) -> (B, T, spatial_dim), the per-frame CNN alone
+        (JAX models/attention.py:81-95); the train step's extract reuse
+        gathers rows of its output."""
+        B, T = frames.shape[:2]
+        flat = frames.reshape((B * T,) + tuple(frames.shape[2:]))
+        return self._encode_flat(flat).reshape(B, T, self.spatial_dim)
+
+    def forward_flat(self, flat_frames: torch.Tensor, batch_size: int,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B*T, H, W, C) pre-flattened frames -> (B, embedding_dim)."""
         T = flat_frames.shape[0] // batch_size
-        feats = self.spatial_encoder(x).reshape(batch_size, T, self.spatial_dim)
+        feats = self._encode_flat(flat_frames).reshape(batch_size, T, self.spatial_dim)
         return self.forward_from_features(feats, mask)
 
     def forward(self, video: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Eval-mode layers of the fingerprint models.
+"""Layers of the fingerprint models, in eval and train mode.
 
 Submodules are named after the upstream reference's state_dict keys
 (reference model.py:74-179; the key table is utils/torch_compat.py), so a
@@ -6,8 +6,14 @@ reference `.pth` loads with a strict `load_state_dict`. Sequences are
 (B, T, C) as in the JAX package; frames enter the spatial encoder as NCHW
 views of channels-last memory, the layout cuDNN takes directly.
 
-Convs, projections and the MLP are cuDNN/cuBLAS calls; the attention itself
-is the hand-written kernel in ops/attention.py.
+Convs, projections and the MLP are cuDNN/cuBLAS calls. In eval mode the
+attention itself is the hand-written kernel in ops/attention.py; in train
+mode it is plain torch math with dropout on the weights, as the JAX
+package computes it outside its Pallas kernel (models/layers.py:320-332
+there). Dropout sits where the JAX package has it (nn.Dropout modules,
+which hold no parameters, so the state_dict keys do not change); BatchNorm
+in train mode is torch's, whose momentum 0.1 and unbiased running variance
+are what the JAX `TorchBatchNorm` does.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_fingerprint_tpu_torch.ops.attention import multihead_attention
+from video_fingerprint_tpu_torch.ops.attention import MASKED_BIAS, multihead_attention
 
 PE_MAX_LEN = 10000  # reference model.py:80 registers a 10000-row table
 
@@ -42,7 +48,8 @@ class PositionalEncoding(nn.Module):
     """Adds the sinusoidal table to (B, T, C); keeps the reference's
     persistent buffer `pe` of shape (1, 10000, C). Row t of the table does
     not depend on its length, so slicing it equals the JAX package's
-    per-length `positional_encoding`."""
+    per-length `positional_encoding`; past the buffer's rows the table is
+    built for T, as JAX builds it for any T."""
 
     def __init__(self, d_model: int, max_len: int = PE_MAX_LEN):
         super().__init__()
@@ -50,7 +57,12 @@ class PositionalEncoding(nn.Module):
             "pe", torch.from_numpy(_sinusoidal_table(max_len, d_model).copy())[None])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe[:, : x.shape[1]].to(x.dtype)
+        T = x.shape[1]
+        if T <= self.pe.shape[1]:
+            pe = self.pe[:, :T]
+        else:
+            pe = torch.from_numpy(_sinusoidal_table(T, x.shape[2]))[None].to(x.device)
+        return x + pe.to(x.dtype)
 
 
 def _bn_or_identity(bn: nn.Module, fused: bool) -> nn.Module:
@@ -83,16 +95,17 @@ class SpatialEncoder(nn.Module):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """nn.MultiheadAttention(batch_first=True)'s parameters and eval forward,
-    with an optional (B, T) key-padding mask; the attention runs in the
-    hand-written kernel (ops/attention.py)."""
+    """nn.MultiheadAttention(batch_first=True)'s parameters, with an optional
+    (B, T) key-padding mask. Eval: the hand-written kernel
+    (ops/attention.py). Train: plain math with dropout on the weights."""
 
-    def __init__(self, dim: int, num_heads: int = 8):
+    def __init__(self, dim: int, num_heads: int = 8, drop: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        self.attn_drop = nn.Dropout(drop)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -101,27 +114,48 @@ class MultiHeadSelfAttention(nn.Module):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         # (B, T, 3, H, D) -> three (B, H, T, D) views of the one projection
         q, k, v = qkv.view(B, T, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
-        out = multihead_attention(q, k, v, mask=mask)
+        if self.training:
+            out = self._train_attention(q, k, v, mask)
+        else:
+            out = multihead_attention(q, k, v, mask=mask)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, C))
+
+    def _train_attention(self, q, k, v, mask):
+        """JAX models/layers.py:320-332: f32 scores (autocast off, so bf16
+        q and k multiply exactly and accumulate in f32) divided by sqrt(D),
+        masked keys replaced by finfo(f32).min / 2, softmax, dropout, then
+        the weights in v's dtype times v."""
+        with torch.autocast(q.device.type, enabled=False):
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :].to(torch.bool), MASKED_BIAS)
+        attn = self.attn_drop(torch.softmax(scores, dim=-1))
+        return torch.matmul(attn.to(v.dtype), v)
 
 
 class TemporalAttentionBlock(nn.Module):
-    """Pre-LN MHA + residual; pre-LN 1x1-conv MLP (exact GELU) + residual."""
+    """Pre-LN MHA + residual; pre-LN 1x1-conv MLP (exact GELU) + residual;
+    dropout on the attention output and both MLP layers in train mode."""
 
-    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 4):
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: int = 4,
+                 drop: float = 0.1):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadSelfAttention(dim, num_heads)
+        self.attn = MultiHeadSelfAttention(dim, num_heads, drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.conv1 = nn.Conv1d(dim, dim * mlp_ratio, 1)
         self.conv2 = nn.Conv1d(dim * mlp_ratio, dim, 1)
+        self.drop_attn = nn.Dropout(drop)
+        self.drop_mlp1 = nn.Dropout(drop)
+        self.drop_mlp2 = nn.Dropout(drop)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        x = x + self.attn(self.norm1(x), mask=mask)
+        x = x + self.drop_attn(self.attn(self.norm1(x), mask=mask))
         # 1x1 Conv1d on (B, T, C) is a pointwise linear layer
         h = F.linear(self.norm2(x), self.conv1.weight[:, :, 0], self.conv1.bias)
-        h = F.linear(F.gelu(h), self.conv2.weight[:, :, 0], self.conv2.bias)
-        return x + h
+        h = self.drop_mlp1(F.gelu(h))
+        h = F.linear(h, self.conv2.weight[:, :, 0], self.conv2.bias)
+        return x + self.drop_mlp2(h)
 
 
 class TemporalConvBlock(nn.Module):

@@ -1,11 +1,20 @@
 """Fused masked attention for the temporal attention blocks.
 
 softmax(q k^T / sqrt(D) + key bias) v over many small instances: 8 heads of
-D = 32 per video, T frames (any T >= 1; the scan's buckets end at its
-`max_frames`), 4 blocks per forward. On a CUDA tensor
-the wrappers launch the hand-written kernel in `csrc/attention.cu`; on a CPU
-tensor they run `_attention_torch`, the plain version of the same function.
-Nothing falls back: a CUDA tensor the kernel cannot take raises.
+D = temporal_dim / 8 per video (32 at the models' default width), T frames
+(any T >= 1; the scan's buckets end at its `max_frames`), 4 blocks per
+forward. On a CUDA tensor the wrappers launch the hand-written kernel in
+`csrc/attention.cu`; on a CPU tensor they run `_attention_torch`, the plain
+version of the same function. Nothing falls back: a CUDA tensor the kernel
+cannot take raises.
+
+The kernel is built for head widths 32 and 64 (`KERNEL_WIDTHS`). A head of
+D < 32, or 32 < D < 64, is zero-padded to the next width and the padded
+output columns are dropped; zero columns leave q k^T unchanged and the
+scale stays 1/sqrt(D), so the result is exact. D = 32 and D = 64 pass
+without a copy; D > 64 raises. The kernel has no backward: it raises when
+autograd would need one (train-mode attention is plain torch math, as in
+the JAX package).
 
 Semantics follow video_fingerprint_tpu/ops/attention.py: scores, bias and
 softmax in f32, the bias is the finite finfo(f32).min / 2 for a masked key
@@ -21,8 +30,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-HEAD_DIM = 32
+KERNEL_WIDTHS = (32, 64)  # head widths the kernel is instantiated for
 MASKED_BIAS = torch.finfo(torch.float32).min / 2
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show that
@@ -42,10 +52,12 @@ def _key_bias(mask: Optional[torch.Tensor], shape, device) -> torch.Tensor:
 
 
 def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
+                     bias: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: (..., T, D) q/k/v and a (..., T) f32 key bias that
-    broadcasts over the leading dims. Mirrors `_attention_jnp`."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    broadcasts over the leading dims. Mirrors `_attention_jnp`; `scale`
+    defaults to 1/sqrt(D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = s + bias.unsqueeze(-2)
     p = torch.softmax(s, dim=-1)
@@ -60,7 +72,7 @@ def _library():
         lib = _build.load("attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.vfp_attention_forward.argtypes = (
-            [ptr] * 5 + [i32] * 4 + [i64] * 12 + [ptr])
+            [ptr] * 5 + [i32] * 5 + [ctypes.c_float] + [i64] * 12 + [ptr])
         lib.vfp_attention_forward.restype = i32
         lib.vfp_error_string.argtypes = [i32]
         lib.vfp_error_string.restype = ctypes.c_char_p
@@ -68,22 +80,52 @@ def _library():
     return _lib
 
 
+def kernel_width(head_dim: int) -> int:
+    """The kernel's head width for a head of `head_dim` columns."""
+    for width in KERNEL_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise ValueError(f"the attention kernel takes head dims up to {KERNEL_WIDTHS[-1]}, "
+                     f"got {head_dim}")
+
+
+def _at_kernel_width(launch, q, k, v, mask):
+    """launch(q, k, v, mask, scale) at the kernel's width: q/k/v zero-padded
+    from D to `kernel_width(D)` columns (no copy when D is a width), the
+    scale of the true D, the padded output columns dropped."""
+    D = q.shape[-1]
+    width = kernel_width(D)
+    scale = 1.0 / math.sqrt(D)
+    if width == D:
+        return launch(q, k, v, mask, scale)
+    pad = lambda x: F.pad(x, (0, width - D))
+    return launch(pad(q), pad(k), pad(v), mask, scale)[..., :D]
+
+
 def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the kernel on (B, H, T, D) views; mask is (B, T) or None.
-
-    q, k and v may be strided views (the head dimension contiguous); the
-    output is allocated as (B, T, H, D) and returned as its (B, H, T, D)
-    view, so the caller's merge of the heads is free."""
-    global launches
-    B, H, T, D = q.shape
+    """The kernel on (B, H, T, D) views; mask is (B, T) or None."""
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device: "
                              f"{tuple(x.shape)} {x.dtype} {x.device} vs "
                              f"{tuple(q.shape)} {q.dtype} {q.device}")
-    if D != HEAD_DIM:
-        raise ValueError(f"head dim must be {HEAD_DIM}, got {D}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("the attention kernel has no backward: run the forward under "
+                           "torch.no_grad(), or in train mode, whose attention is plain "
+                           "torch math")
+    return _at_kernel_width(_launch, q, k, v, mask)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """One launch on (B, H, T, width) views.
+
+    q, k and v may be strided views (the head dimension contiguous); the
+    output is allocated as (B, T, H, width) and returned as its
+    (B, H, T, width) view, so the caller's merge of the heads is free."""
+    global launches
+    B, H, T, D = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -100,7 +142,7 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.vfp_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, H, T, _DTYPE_CODES[q.dtype],
+            B, H, T, D, _DTYPE_CODES[q.dtype], scale,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             stream,
         )

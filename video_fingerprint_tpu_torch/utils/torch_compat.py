@@ -21,7 +21,10 @@ from typing import Dict, Mapping
 
 import numpy as np
 
+import torch
+
 from video_fingerprint_tpu_torch.models.layers import PE_MAX_LEN, _sinusoidal_table
+from video_fingerprint_tpu_torch.training.optim import GROUP_FACTORS, param_group_label
 
 _SPATIAL_INDICES = [(0, 1), (3, 4), (6, 7), (9, 10)]  # (conv, bn) in the Sequential
 
@@ -231,3 +234,103 @@ def variables_to_state_dict(variables, model_type: str) -> Dict[str, np.ndarray]
     if model_type in ("3d", "cnn3d"):
         return cnn3d_variables_to_state_dict(variables)
     raise ValueError(f"Unknown model type: {model_type}")
+
+
+# --------------------------------------------------------------------------
+# AdamW state <-> optax state dict
+#
+# The JAX package's optimizer is optax.chain(clip_by_global_norm, adamw) —
+# for the attention model with the adamw inside a multi_transform over the
+# spatial / attention / other labels. flax.serialization.to_state_dict of
+# its state is, with "count" an int32 scalar (the updates done) and mu / nu
+# params-shaped trees of the first and second moments:
+#
+#   3D:        {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {},
+#                              "2": {"count"}}}
+#   attention: {"0": {}, "1": {"inner_states": {label: {"inner_state":
+#                 {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}}}}}
+#
+# where a label's mu / nu hold {} in place of every leaf of another label.
+# The moments carry over through the same tables as the weights, so every
+# kernel is transposed exactly as its parameter.
+
+def _emptied(tree):
+    return {k: _emptied(v) for k, v in tree.items()} if isinstance(tree, dict) else {}
+
+
+def _merge(trees):
+    """Leaf-wise union of trees whose leaves are {} where absent."""
+    out = {}
+    for key in trees[0]:
+        subs = [t[key] for t in trees]
+        if all(isinstance(s, dict) for s in subs):
+            merged = _merge(subs)
+            out[key] = merged
+        else:
+            out[key] = next(s for s in subs if not isinstance(s, dict))
+    return out
+
+
+def _named_state_dict(model, values: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The model's state_dict with `values` in place of its parameters."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    sd.update(values)
+    return sd
+
+
+def adamw_to_opt_state(optimizer, model, model_type: str) -> Dict:
+    """torch AdamW state (exp_avg, exp_avg_sq, step) -> the optax state dict
+    of the JAX package's optimizer for the same model."""
+    names = {p: n for n, p in model.named_parameters()}
+    mu, nu, count = {}, {}, 0
+    for p, name in names.items():
+        state = optimizer.state.get(p, {})
+        zeros = np.zeros(tuple(p.shape), np.float32)
+        mu[name] = state["exp_avg"].detach().cpu().numpy() if state else zeros
+        nu[name] = state["exp_avg_sq"].detach().cpu().numpy() if state else zeros
+        if state:
+            count = int(state["step"])
+    mu_tree = state_dict_to_variables(_named_state_dict(model, mu), model_type)["params"]
+    nu_tree = state_dict_to_variables(_named_state_dict(model, nu), model_type)["params"]
+    c = np.asarray(count, np.int32)
+
+    def adam(m, v):
+        return {"0": {"count": c, "mu": m, "nu": v}, "1": {}, "2": {"count": c}}
+
+    if model_type != "attention":
+        return {"0": {}, "1": adam(mu_tree, nu_tree)}
+
+    def only(tree, label):
+        return {k: (v if param_group_label(k) == label else _emptied(v))
+                for k, v in tree.items()}
+
+    return {"0": {}, "1": {"inner_states": {
+        label: {"inner_state": adam(only(mu_tree, label), only(nu_tree, label))}
+        for label in GROUP_FACTORS}}}
+
+
+def opt_state_to_adamw(opt_state: Mapping, optimizer, model, model_type: str) -> int:
+    """Load an optax state dict of the JAX package's optimizer into torch
+    AdamW's state for the same model; returns the update count."""
+    if model_type == "attention":
+        inner = [opt_state["1"]["inner_states"][label]["inner_state"]["0"]
+                 for label in GROUP_FACTORS]
+        mu_tree = _merge([s["mu"] for s in inner])
+        nu_tree = _merge([s["nu"] for s in inner])
+        count = int(inner[0]["count"])
+    else:
+        adam = opt_state["1"]["0"]
+        mu_tree, nu_tree, count = adam["mu"], adam["nu"], int(adam["count"])
+    stats = state_dict_to_variables(_named_state_dict(model, {}), model_type)["batch_stats"]
+    mu = variables_to_state_dict({"params": mu_tree, "batch_stats": stats}, model_type)
+    nu = variables_to_state_dict({"params": nu_tree, "batch_stats": stats}, model_type)
+    optimizer.state.clear()
+    if count == 0:
+        return 0
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.as_tensor(mu[name], dtype=p.dtype).to(p.device).reshape(p.shape),
+            "exp_avg_sq": torch.as_tensor(nu[name], dtype=p.dtype).to(p.device).reshape(p.shape),
+        }
+    return count
