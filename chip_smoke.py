@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py --phases index,train   # a subset, in the order below
 
 Phases, each of which raises (exit code 1) on any failure:
 
@@ -58,7 +59,42 @@ Phases, each of which raises (exit code 1) on any failure:
      windows, with peak memory and one torch.profiler window; the train
      CLI on a 16-video mp4 corpus for 2 epochs (artifacts, K1 launched in
      validation and not in the train steps), a resume from last.ckpt, and
-     a scan of the corpus with its best.ckpt on the card.
+     a scan of the corpus with its best.ckpt on the card;
+  9. device augment (ops/device_augment.py): apply_augmentations on the
+     card and on the CPU at B = 64, T = 64, 64x64 with the same params and
+     noise, each transform alone (every gate forced on) and two whole
+     pipelines (every gate on; a sampled draw, per-frame params): within
+     1e-5, color by the share of elements within 1e-5 (>= 99.99 %); the
+     augmented pair batch's ms on the card; train steps/s with
+     device_augment for attention f32 and bf16 (B = 64, T = 64) and 3D f32
+     (B = 128 x 128); loader clips/s at the train CLI's defaults on 34
+     640x360 x 300-frame mp4s, host against device augment mode, 4
+     workers; the train CLI with --device_augment for an epoch (artifacts,
+     K1 launched in validation only);
+ 10. the native host paths (utils/native.py, utils/native_decode.py, g++
+     builds of native/*.cc): whether each library built, and for one that
+     did not, the scanner's message; on the same 34 mp4s, host
+     decode videos/s of the scan's producer (4 workers) with cv2 and with
+     each native path that built, and the attention scan on the card in
+     each mode (--native_decode stages uint8, --native_preprocess float32)
+     against the cv2 scan (cosine >= 0.999, equal duplicate groups), with
+     batching-stage videos/s per mode; where vfp_decode built, also
+     decode_scan against the cv2 path (mean |diff| < 3) and the 3D scan
+     with --native_decode against the cv2 3D scan.
+
+Phase 7 also runs the certified top-k methods ("certified" strict and with
+exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
+storages and on the 10^5 self-search, against the float64 oracle (strict:
+exact's score multiset; threshold: complete above 0.95, scores within
+2e-5), with the rows repaired and each method's ms beside exact's and the
+bound.
+
+Before each phase the script waits for the card, collects garbage and
+empties the allocator's cache, so no phase inherits another's memory
+state; each timed train-step row also reports the host CPU ms per step,
+the card's busy share under torch.profiler, and the process's threads, the
+allocator's cudaMalloc/cudaFree counts and the card's clocks, temperature
+and power around the timed steps.
 
 Neither the 3D nor the index path has a hand-written kernel (cuDNN runs the
 3D convs, cuBLAS the similarity matmuls, as XLA does in the JAX package);
@@ -71,10 +107,13 @@ path; the last line is {"ok": true, "device": {...}}. Needs no network.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import gc
 import hashlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -912,8 +951,8 @@ def _kernel_times(torch, fn, top: int = 6):
             "kernels": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:top]]}
 
 
-def _search_bound_ms(m: int, n: int, corpus_bytes: int):
-    t_ops = 2 * m * n * EMB_DIM / PEAK_FLOPS["float32"] * 1e3
+def _search_bound_ms(m: int, n: int, corpus_bytes: int, dtype_name: str = "float32"):
+    t_ops = 2 * m * n * EMB_DIM / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = corpus_bytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -955,7 +994,74 @@ def _check_oracle(scores, idx, sims, oracle_idx, what):
     return worst_score
 
 
-def phase_index(torch, workdir: Path, model_path: Path):
+CERTIFIED_METHODS = (("certified", None), ("certified", 0.95), ("certified-bf16", 0.95))
+
+
+def _check_threshold(scores, idx, sims, thr: float, what: str):
+    """The threshold contract on oracle rows: every corpus row with oracle
+    similarity >= thr is returned (rows with k or more such: the oracle's
+    top-k scores), and every returned score within 2e-5 of the oracle's
+    similarity at its index; returns the worst score error."""
+    k = idx.shape[1]
+    worst = 0.0
+    for r in range(len(idx)):
+        want = set(np.flatnonzero(sims[r] >= thr).tolist())
+        if len(want) >= k:
+            top = np.sort(sims[r])[::-1][:k]
+            worst = max(worst, float(np.abs(np.sort(scores[r])[::-1] - top).max()))
+        else:
+            missing = want - set(idx[r].tolist())
+            require(not missing, f"{what}: row {r} misses {sorted(missing)} above {thr}")
+        worst = max(worst, float(np.abs(scores[r] - sims[r, idx[r]]).max()))
+    require(worst <= 2e-5, f"{what}: scores off by {worst}")
+    return worst
+
+
+def _certified_methods(torch, search, exact_scores, checked, sims, oracle_idx, planted,
+                       exact_ms, bound, what, smi):
+    """Each certified method on the search that exact answered: strict gives
+    exact's score multiset (all rows) and the oracle's top-k on the oracle
+    rows; the threshold methods are complete above 0.95 with scores within
+    2e-5 on the oracle rows, and every planted pair (row, other) finds its
+    copy at >= 0.95. The rows sent to repair, ms, exact's ms and the bound
+    (the first pass's operations at its type's peak rate, or the bytes)."""
+    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    out = {}
+    for method, thr in CERTIFIED_METHODS:
+        name = method if thr is None else f"{method}@{thr}"
+        before = topk.repaired_rows
+        scores, idx = (t.cpu().numpy() for t in search(method, thr))
+        repaired = topk.repaired_rows - before
+        if thr is None:
+            diff = np.abs(np.sort(scores, 1) - np.sort(exact_scores, 1))
+            require(float(diff.max()) <= 1e-6, f"{what} {name}: not exact's scores "
+                    f"({float(diff.max())})")
+            err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx,
+                                f"{what} {name}")
+            extra = {"max_diff_vs_exact": float(diff.max()),
+                     "rows_bitwise_exact": int((diff.max(axis=1) == 0).sum())}
+        else:
+            err = _check_threshold(scores[checked], idx[checked], sims, thr, f"{what} {name}")
+            for row, other in planted:
+                hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
+                require(hits.get(int(other), -1.0) >= thr,
+                        f"{what} {name}: planted copy of row {row} not found")
+            extra = {}
+        ms = cuda_ms(lambda: search(method, thr))
+        first_pass = "bfloat16" if (method == "certified-bf16"
+                                    and "bf16" not in what) else "float32"
+        bound_ms, bound_by = bound(first_pass)
+        out[name] = {"ms": ms, "exact_ms": exact_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "rows": len(exact_scores),
+                     "repaired_rows": repaired, "max_score_err": err, **extra}
+        emit({"phase": "index", "check": "certified", "search": what, "method": name,
+              "smi": smi, **out[name]})
+    return out
+
+
+def phase_index(torch, workdir: Path, model_path: Path, smi: str):
     from video_fingerprint_tpu_torch.inference.index import (
         FingerprintIndex,
         bf16_bits,
@@ -1009,7 +1115,7 @@ def phase_index(torch, workdir: Path, model_path: Path):
         q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
         sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
         err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx, storage)
-        del sims, stored
+        del stored
         staged = index._corpus()
         q_dev = torch.from_numpy(queries).to(CARD)
         ms = cuda_ms(lambda: topk_search(q_dev, staged, 20, exact_above=0.99))
@@ -1022,7 +1128,15 @@ def phase_index(torch, workdir: Path, model_path: Path):
                            "planted_min_cos": float(planted_cos.min()),
                            "profile": _kernel_times(torch, lambda: topk_search(
                                q_dev, staged, 20, exact_above=0.99))}
-        del index, staged, q_dev
+        exact = topk_search(q_dev, staged, 20)[0].cpu().numpy()
+        planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
+        search[storage]["methods"] = _certified_methods(
+            torch, lambda m, thr: topk_search(q_dev, staged, 20, exact_above=thr, method=m),
+            exact, checked, sims, oracle_idx, planted, ms,
+            lambda dtype: _search_bound_ms(INDEX_QUERIES, INDEX_ROWS,
+                                           staged.numel() * staged.element_size(), dtype),
+            f"{storage} 10^6", smi)
+        del index, staged, q_dev, sims, exact
         torch.cuda.empty_cache()
     del corpus
 
@@ -1042,6 +1156,12 @@ def phase_index(torch, workdir: Path, model_path: Path):
     search["self_100k"] = {"ms": ms, "queries_per_s": SELF_SEARCH_ROWS / ms * 1e3,
                            "bound_ms": bound_ms, "bound_by": bound_by, "max_score_err": err,
                            "profile": _kernel_times(torch, lambda: topk_cosine(e_dev, 20))}
+    search["self_100k"]["methods"] = _certified_methods(
+        torch, lambda m, thr: topk_cosine(e_dev, 20, exact_above=thr, method=m),
+        scores, rows, sims, oracle_idx,
+        [(r, r + 1) for r in range(0, SELF_SEARCH_ROWS, 1000)], ms,
+        lambda dtype: _search_bound_ms(SELF_SEARCH_ROWS, SELF_SEARCH_ROWS, emb.nbytes, dtype),
+        "self-search", smi)
     emit({"phase": "index", "cli": flows, "rows": INDEX_ROWS, "queries": INDEX_QUERIES,
           "k": 20, "search": search})
 
@@ -1197,24 +1317,52 @@ def _train_card_vs_cpu(torch):
     return result
 
 
+def _host_and_card_state(torch):
+    """What a step's time may depend on beyond its own code: the process's
+    threads and the host's load, the allocator's cache and its cudaMalloc /
+    cudaFree calls (each frees or synchronizes), the card's clocks,
+    temperature and power."""
+    stats = torch.cuda.memory_stats()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    return {"threads": len(os.listdir("/proc/self/task")),
+            "torch_threads": torch.get_num_threads(), "loadavg_1m": os.getloadavg()[0],
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "alloc_retries": stats.get("num_alloc_retries", 0),
+            "device_mallocs": stats.get("num_device_alloc", 0),
+            "device_frees": stats.get("num_device_free", 0), "smi": smi}
+
+
 def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast: bool,
-                       profile: bool = False):
+                       augment: bool = False):
     """Train steps per second at full width on seeded ragged clips: WARM_STEPS
     steps, then TIMED_STEPS on the host clock ending in a synchronize (the
     extract draws are made on the host and copied per step, as the trainer
-    does); peak device memory; K1 launches (0 expected)."""
+    does; with `augment` the device-augment draws are made on the card per
+    step, as the trainer does); the host CPU seconds per step, peak device
+    memory, the host's and the card's state before and after, one step under
+    torch.profiler (its busy share); K1 launches (0 expected)."""
     from video_fingerprint_tpu_torch.ops import attention as attn
-    from video_fingerprint_tpu_torch.training.train_step import draw_extracts
+    from video_fingerprint_tpu_torch.training.train_step import (
+        draw_augmentations,
+        draw_extracts,
+    )
 
     rng = np.random.default_rng(SEED + 3)
     batch = _train_batch(torch, rng, B, T, "cuda")
     if model_type != "attention":
         batch = {k: v for k, v in batch.items() if not k.startswith("mask")}
     model, _, step = _train_setup(torch, model_type, "cuda", bf16=bf16,
-                                  reuse_extract_features=fast)
+                                  reuse_extract_features=fast, device_augment=augment)
     gen = torch.Generator().manual_seed(SEED)
-    draws = (lambda: draw_extracts(gen, B, T, 0.5)) if model_type == "attention" else (
-        lambda: None)
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def draws():
+        out = draw_extracts(gen, B, T, 0.5) if model_type == "attention" else {}
+        if augment:
+            out.update(draw_augmentations(card_gen, batch))
+        return out or None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = attn.launches
@@ -1223,21 +1371,26 @@ def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast:
         out = step(batch, draws(), n)
         n += 1
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    state_before = _host_and_card_state(torch)
+    t0, cpu0 = time.perf_counter(), time.process_time()
     for _ in range(TIMED_STEPS):
         out = step(batch, draws(), n)
         n += 1
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    cpu_s = time.process_time() - cpu0
+    state_after = _host_and_card_state(torch)
     loss = float(out["loss"])
     require(np.isfinite(loss), f"{model_type} bf16={bf16} fast={fast}: loss {loss}")
     require(attn.launches == before, "a train step launched the attention kernel")
     row = {"model": model_type, "B": B, "T": T, "dtype": "bfloat16" if bf16 else "float32",
-           "fast_extracts": fast, "steps_per_s": TIMED_STEPS / seconds,
+           "fast_extracts": fast, "device_augment": augment,
+           "steps_per_s": TIMED_STEPS / seconds,
            "ms_per_step": seconds / TIMED_STEPS * 1e3,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "last_loss": loss}
-    if profile:
-        row["profile"] = _kernel_times(torch, lambda: step(batch, draws(), n), top=8)
+           "host_cpu_ms_per_step": cpu_s / TIMED_STEPS * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "last_loss": loss,
+           "state_before": state_before, "state_after": state_after,
+           "profile": _kernel_times(torch, lambda: step(batch, draws(), n), top=8)}
     del model, step, batch
     torch.cuda.empty_cache()
     emit({"phase": "train", "check": "steps", **row})
@@ -1334,13 +1487,437 @@ def phase_train(torch, workdir: Path, smi: str):
     configs = [("attention", TRAIN_B, TRAIN_T, bf16, fast)
                for bf16 in (False, True) for fast in (False, True)]
     configs.append(("3d", 2 * TRAIN_B, CLIP_LENGTH, False, False))
-    speed = [_train_steps_per_s(torch, *c, profile=(c == configs[0])) for c in configs]
+    speed = [_train_steps_per_s(torch, *c) for c in configs]
     cli = _train_cli(torch, workdir)
     emit({"phase": "train", "smi": smi, "head_dims": head_dims, "card_vs_cpu": check,
           "steps": speed, "cli": cli, "seconds": time.perf_counter() - t0})
 
 
-def main() -> int:
+# ----------------------------------------------------------- device augment
+
+AUG_B, AUG_T = 64, 64
+AUG_SHARE = 0.9999  # color: share of elements within 1e-5 of the CPU's
+AUG_ATOL = 1e-5
+AUG_GATES = ("do_color", "do_flip", "do_letterbox", "do_overlay", "do_rotation")
+AUG_TRANSFORMS = ("color", "flip", "noise", "blur", "letterbox", "overlay", "rotation")
+
+
+def _aug_params_alone(torch, params, transform):
+    """`params` with every transform off but `transform`."""
+    p = dict(params)
+    for gate in AUG_GATES:
+        if gate != "do_" + transform:
+            p[gate] = torch.zeros_like(p[gate])
+    if transform != "noise":
+        p["noise_level"] = torch.zeros_like(p["noise_level"])
+    if transform != "blur":
+        p["blur_idx"] = torch.zeros_like(p["blur_idx"])
+    return p
+
+
+def _aug_forced(torch, rng):
+    """Per-frame params with every gate on, blur k cycling over 3/5/7."""
+    from video_fingerprint_tpu_torch.ops.device_augment import sample_params
+
+    p = sample_params(torch.Generator().manual_seed(int(rng.integers(1 << 30))), AUG_B, 64,
+                      num_frames=AUG_T, device="cpu")
+    for gate in AUG_GATES:
+        p[gate] = torch.ones_like(p[gate])
+    p["noise_level"] = torch.from_numpy(rng.uniform(0.02, 0.1, AUG_B).astype(np.float32))
+    p["blur_idx"] = torch.arange(AUG_B) % 3 + 1
+    p["rotation_angle"] = torch.from_numpy(
+        rng.uniform(-5, 5, (AUG_B, AUG_T)).astype(np.float32))
+    return p
+
+
+def _aug_card_vs_cpu(torch, params, clips, noise, what):
+    from video_fingerprint_tpu_torch.ops.device_augment import apply_augmentations
+
+    cpu = apply_augmentations(params, clips, noise)
+    card = apply_augmentations({k: v.cuda() for k, v in params.items()}, clips.cuda(),
+                               noise.cuda()).cpu()
+    err = (card - cpu).abs()
+    share = float((err <= AUG_ATOL).double().mean())
+    require(bool(torch.isfinite(card).all()), f"augment {what}: non-finite output")
+    return float(err.max()), share
+
+
+def _augment_correctness(torch):
+    """Each transform alone and two whole pipelines, card against CPU."""
+    from video_fingerprint_tpu_torch.ops.device_augment import sample_params
+
+    rng = np.random.default_rng(SEED + 7)
+    clips = torch.from_numpy(np.stack([_seeded_clip(rng, AUG_T) for _ in range(AUG_B)])
+                             ).float() / 255.0
+    noise = torch.randn(clips.shape, generator=torch.Generator().manual_seed(SEED))
+    forced = _aug_forced(torch, rng)
+    sampled = sample_params(torch.Generator().manual_seed(SEED + 1), AUG_B, 64,
+                            num_frames=AUG_T, device="cpu")
+    rows = []
+    cases = [(t, _aug_params_alone(torch, forced, t)) for t in AUG_TRANSFORMS]
+    cases += [("all_forced", forced), ("sampled", sampled)]
+    for what, params in cases:
+        max_err, share = _aug_card_vs_cpu(torch, params, clips, noise, what)
+        held_by_share = what in ("color", "all_forced", "sampled")
+        if held_by_share:
+            require(share >= AUG_SHARE, f"augment {what}: {share} of elements within "
+                    f"{AUG_ATOL} (max err {max_err})")
+        else:
+            require(max_err <= AUG_ATOL, f"augment {what}: max abs err {max_err}")
+        rows.append({"transform": what, "max_abs_err": max_err, "share_within_1e-5": share,
+                     "held_by": "share" if held_by_share else "max_abs"})
+    return rows
+
+
+def _augment_ms(torch, smi):
+    """The augmented pair batch on the card: the draws (params and noise of
+    both sides) and the transforms, B = 64, T = 64, 64x64, beside the bytes
+    bound of the transforms (each side reads its clip and noise once and
+    writes its output once, f32)."""
+    from video_fingerprint_tpu_torch.ops import device_augment as daug
+    from video_fingerprint_tpu_torch.ops.device_augment import apply_drawn
+    from video_fingerprint_tpu_torch.training.train_step import (
+        draw_augmentations,
+        normalize_clip,
+    )
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    batch = _train_batch(torch, np.random.default_rng(SEED + 8), AUG_B, AUG_T, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    drawn = draw_augmentations(gen, batch)
+
+    def apply():
+        return [apply_drawn(drawn[f"aug{s}"], normalize_clip(batch[f"clip{s}"]),
+                            batch[f"mask{s}"]) for s in (1, 2)]
+
+    draw_ms = cuda_ms(lambda: draw_augmentations(gen, batch))
+    apply_ms = cuda_ms(apply)
+    nbytes = 2 * batch["clip1"].numel() * (1 + 4 + 4)  # u8 clip, f32 noise, f32 out
+    # where one side's time goes: the costly transforms alone (every
+    # transform runs on the whole batch, its gate only blends)
+    x, p = normalize_clip(batch["clip1"]), drawn["aug1"]["params"]
+    stages = {"color": lambda: daug._color(x, p),
+              "blur": lambda: daug._blur(x, p["blur_idx"]),
+              "rotation": lambda: daug._rotate_bilinear(x, p["rotation_angle"]),
+              "one_side": lambda: daug.apply_augmentations(p, x, drawn["aug1"]["noise"])}
+    row = {"B": AUG_B, "T": AUG_T, "draw_ms": draw_ms, "apply_ms": apply_ms,
+           "pair_ms": draw_ms + apply_ms, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "stage_ms": {k: cuda_ms(f) for k, f in stages.items()},
+           "smi": smi}
+    emit({"phase": "augment", "check": "time", **row})
+    return row
+
+
+def _loader_rates(torch, workdir: Path, smi):
+    """Train-loader clips/s from create_dataloader at the train CLI's
+    defaults (batch 8, 4 workers, max_frames 500, 64x64 clips) on the
+    640x360 x 300-frame mp4 corpus of the native phase, host against device
+    augment mode: the first epoch (full-resolution decode, resize and
+    augmentation) and the second (decoded frames cached)."""
+    from video_fingerprint_tpu_torch.data.dataset import create_dataloader
+
+    videos, paths = _hd_corpus(workdir)
+    rows = {}
+    for mode in ("host", "device"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            loader = create_dataloader(videos, batch_size=8, num_workers=4, mode="train",
+                                       seed=SEED, augment_mode=mode)
+        row = {}
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            clips = sum(2 * len(b["video_id"]) for b in loader)
+            seconds = time.perf_counter() - t0
+            row[f"epoch{epoch}_clips_per_s"] = clips / seconds
+            row[f"epoch{epoch}_s"] = seconds
+        row["clips_per_epoch"] = clips
+        rows[mode] = row
+        del loader  # and its cache of full-resolution frames (~7 GB)
+        gc.collect()
+    emit({"phase": "augment", "check": "loader", "workers": 4, "videos": len(paths),
+          "size": f"{HD_W}x{HD_H}", "frames": HD_FRAMES, "smi": smi, **rows})
+    return rows
+
+
+def _augment_cli(torch, workdir: Path):
+    """The train CLI with --device_augment, one epoch on the 16-video
+    corpus of the train phase: artifacts, config, K1 launched in
+    validation and not in the train steps."""
+    import os
+
+    from video_fingerprint_tpu_torch.cli.train import main
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.training.trainer import Trainer
+    from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
+
+    videos = workdir / "train_videos"
+    if not videos.exists():
+        make_corpus(videos, num_unique=14, num_frames=40, duplicates=2)
+    counts = {"train_epoch": 0, "validate": 0}
+    originals = {name: getattr(Trainer, name) for name in counts}
+
+    def counted(name):
+        def run(self, *args, **kwargs):
+            before = attn.launches
+            out = originals[name](self, *args, **kwargs)
+            counts[name] += attn.launches - before
+            return out
+        return run
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        for name in counts:
+            setattr(Trainer, name, counted(name))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = main(["--data_dir", str(videos), "--batch_size", "4", "--num_workers", "4",
+                       "--max_frames", "64", "--epochs", "1", "--run_name", "augment",
+                       "--device_augment"])
+        seconds = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+        os.chdir(cwd)
+    require(rc == 0, f"train CLI --device_augment exited {rc}")
+    run = workdir / "runs" / "augment"
+    for name in ("config.json", "training_log.txt", "training_summary.txt",
+                 "checkpoints/last.ckpt", "checkpoints/best.ckpt"):
+        require((run / name).exists(), f"train CLI --device_augment left no {name}")
+    require(json.loads((run / "config.json").read_text())["device_augment"] is True,
+            "config.json does not record device_augment")
+    require(counts["validate"] > 0, "--device_augment: validation did not launch K1")
+    require(counts["train_epoch"] == 0, "--device_augment: a train step launched K1")
+    return {"epochs": 1, "seconds": seconds, "attention_launches": counts}
+
+
+def phase_augment(torch, workdir: Path, smi: str):
+    t0 = time.perf_counter()
+    checks = _augment_correctness(torch)
+    for row in checks:
+        emit({"phase": "augment", "check": "card_vs_cpu", **row})
+    times = _augment_ms(torch, smi)
+    steps = [_train_steps_per_s(torch, *c, augment=True)
+             for c in (("attention", TRAIN_B, TRAIN_T, False, False),
+                       ("attention", TRAIN_B, TRAIN_T, True, False),
+                       ("3d", 2 * TRAIN_B, CLIP_LENGTH, False, False))]
+    loader = _loader_rates(torch, workdir, smi)
+    cli = _augment_cli(torch, workdir)
+    emit({"phase": "augment", "smi": smi, "card_vs_cpu": checks, "time": times,
+          "steps": steps, "loader": loader, "cli": cli,
+          "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------------------------- native paths
+
+HD_VIDEOS, HD_FRAMES, HD_H, HD_W = 32, 300, 360, 640
+
+
+def _hd_frames(seed: int) -> np.ndarray:
+    """(300, 360, 640, 3) uint8: a seeded image of its own (6 x 10 random
+    colours upscaled bilinearly, features ~64 px wide) panning sideways.
+    Fast to make; distinct videos stay apart in a random model's embedding
+    space; smooth enough that cv2's bilinear decimation and swscale's
+    filtered scaling see the same picture."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    image = cv2.resize(rng.integers(0, 256, (6, 10, 3), dtype=np.uint8),
+                       (HD_W, HD_H), interpolation=cv2.INTER_LINEAR)
+    speed = int(rng.integers(1, 4))
+    return np.stack([np.roll(image, speed * t, axis=1) for t in range(HD_FRAMES)])
+
+
+def _hd_corpus(workdir: Path):
+    """32 seeded 640x360 x 300-frame mp4s and byte-identical copies of two,
+    written at the first call (the loader's and the native phase's input)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from video_fingerprint_tpu_torch.utils.synthetic import write_video
+
+    videos = workdir / "hd_videos"
+    originals = [videos / f"video_{i:02d}.mp4" for i in range(HD_VIDEOS)]
+    copies = [videos / f"video_{i:02d}_copy.mp4" for i in range(2)]
+    if not videos.exists():
+        videos.mkdir()
+
+        def write(i):
+            return write_video(originals[i], _hd_frames(SEED + 100 + i))
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(write, range(HD_VIDEOS)))
+        for i, copy in enumerate(copies):
+            copy.write_bytes(originals[i].read_bytes())
+    return videos, originals + copies
+
+
+def _scanner(torch, model_path, **flags):
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        scanner = FingerprintScanner(str(model_path), device="cuda", batch_size=BATCH, **flags)
+    return scanner, out.getvalue()
+
+
+def _decode_rate(scanner, paths):
+    """Host decode videos/s of the scanner's producer, 4 workers, and the
+    clips it gave."""
+    t0 = time.perf_counter()
+    clips = dict(scanner.decode_clips(paths, 4))
+    seconds = time.perf_counter() - t0
+    require(all(c is not None for c in clips.values()), "a video failed to decode")
+    return len(paths) / seconds, clips
+
+
+def _stage_rate(torch, scanner, clips):
+    """Batching-stage videos/s on decoded clips: 256 clips (the corpus's
+    repeated), B = 64, after one warm batch."""
+    items = [(i, clips[i % len(clips)]) for i in range(4 * BATCH)]
+    scanner.embed_clips(items[:BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scanner.embed_clips(items)
+    torch.cuda.synchronize()
+    return len(items) / (time.perf_counter() - t0)
+
+
+def _require_pairs(groups, paths, what):
+    """Each planted copy shares a group with its original."""
+    for i in range(2):
+        pair = {str(paths[i]), str(paths[HD_VIDEOS + i])}
+        require(any(pair <= set(g) for g in groups), f"{what}: copy {i} not grouped")
+
+
+def _scan_and_group(torch, scanner, videos):
+    from video_fingerprint_tpu_torch.ops import attention as attn
+
+    before = attn.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        fps = scanner.scan_directory(videos, num_workers=4)
+        groups = _groups(scanner.find_duplicates(fps, 0.999999))
+    torch.cuda.synchronize()
+    return fps, groups, attn.launches - before
+
+
+def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi: str):
+    from video_fingerprint_tpu_torch.data import decode, preprocess
+    from video_fingerprint_tpu_torch.utils import native, native_decode
+
+    t0 = time.perf_counter()
+    built = {"vfp_host": native.available(), "vfp_decode": native_decode.available()}
+    report = {"built": built,
+              "build_errors": {"vfp_host": native.LIBRARY.error[-400:],
+                               "vfp_decode": native_decode.LIBRARY.error[-400:]}}
+    emit({"phase": "native", "check": "build", **report})
+    if not built["vfp_decode"]:
+        _, out = _scanner(torch, model_path, native_decode=True)
+        require("native decode requested but unavailable; using cv2" in out,
+                f"no unavailable-decoder message: {out!r}")
+        report["scanner_message"] = "native decode requested but unavailable; using cv2"
+    if not built["vfp_host"]:
+        _, out = _scanner(torch, model_path, native_preprocess=True)
+        require("native preprocess requested but unavailable; using cv2" in out,
+                f"no unavailable-preprocess message: {out!r}")
+        report["scanner_message_preprocess"] = (
+            "native preprocess requested but unavailable; using cv2")
+    if not any(built.values()):
+        emit({"phase": "native", "smi": smi, **report,
+              "seconds": time.perf_counter() - t0})
+        return report
+
+    videos, paths = _hd_corpus(workdir)
+    mean_diff = None
+    if built["vfp_decode"]:
+        ours = native_decode.decode_scan(paths[2], 500, 64)
+        ref = preprocess.preprocess_frames(decode.decode_subsampled(paths[2], 500), 64,
+                                           normalize=False)
+        require(ours.shape == ref.shape, f"decode_scan {ours.shape} vs cv2 {ref.shape}")
+        mean_diff = float(np.abs(ours.astype(np.int16) - ref.astype(np.int16)).mean())
+        require(mean_diff < 3.0, f"decode_scan vs cv2 mean |diff| {mean_diff}")
+
+    modes = {"cv2": {}}
+    if built["vfp_decode"]:
+        modes["native_decode"] = {"native_decode": True}
+    if built["vfp_host"]:
+        modes["native_preprocess"] = {"native_preprocess": True}
+    rows, base = {}, None
+    for mode, flags in modes.items():
+        scanner, _ = _scanner(torch, model_path, **flags)
+        require(all(getattr(scanner, f) for f in flags), f"{mode}: flag not taken")
+        decode_vps, clips = _decode_rate(scanner, paths)
+        stage_vps = _stage_rate(torch, scanner, [clips[p] for p in paths])
+        fps, groups, launches = _scan_and_group(torch, scanner, videos)
+        require(len(fps) == len(paths), f"{mode}: {len(fps)} of {len(paths)} videos")
+        require(launches > 0, f"{mode}: the scan did not launch K1")
+        row = {"decode_videos_per_s": decode_vps, "stage_videos_per_s": stage_vps,
+               "stage_dtype": np.dtype(scanner.stage_dtype).name, "groups": len(groups),
+               "attention_launches": launches}
+        _require_pairs(groups, paths, mode)
+        if base is None:
+            base = (fps, groups)
+        else:
+            cos = min(float(np.dot(fps[p]["embedding"], base[0][p]["embedding"]))
+                      for p in fps)
+            require(cos >= 0.999, f"{mode} vs cv2 scan cosine {cos}")
+            require(groups == base[1], f"{mode} groups {groups} != cv2 groups {base[1]}")
+            row["min_cos_vs_cv2"] = cos
+        rows[mode] = row
+        emit({"phase": "native", "check": "attention", "mode": mode, "smi": smi, **row})
+        del scanner, clips
+
+    rows3d, base = {}, None
+    modes3d = {"cv2": {}}
+    if built["vfp_decode"]:
+        modes3d["native_decode"] = {"native_decode": True}
+    for mode, flags in modes3d.items():
+        scanner, _ = _scanner(torch, model3d_path, **flags)
+        t1 = time.perf_counter()
+        fps, groups, launches = _scan_and_group(torch, scanner, videos)
+        row = {"scan_videos_per_s": len(fps) / (time.perf_counter() - t1),
+               "groups": len(groups), "attention_launches": launches}
+        require(len(fps) == len(paths), f"3D {mode}: {len(fps)} of {len(paths)} videos")
+        _require_pairs(groups, paths, f"3D {mode}")
+        if base is None:
+            base = (fps, groups)
+        else:
+            cos = min(float(np.dot(fps[p]["embedding"], base[0][p]["embedding"]))
+                      for p in fps)
+            require(cos >= 0.999, f"3D {mode} vs cv2 scan cosine {cos}")
+            require(groups == base[1], f"3D {mode} groups {groups} != cv2 {base[1]}")
+            row["min_cos_vs_cv2"] = cos
+        rows3d[mode] = row
+        emit({"phase": "native", "check": "3d", "mode": mode, "smi": smi, **row})
+        del scanner
+    emit({"phase": "native", "smi": smi, **report, "videos": len(paths),
+          "frames": HD_FRAMES, "size": f"{HD_W}x{HD_H}",
+          "decode_scan_vs_cv2_mean_abs_diff": mean_diff, "attention": rows, "3d": rows3d,
+          "seconds": time.perf_counter() - t0})
+    return report
+
+
+PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
+          "native")
+
+
+def _settle(torch) -> None:
+    """Between phases: wait for the card, collect the last phase's garbage
+    and hand the allocator's cached blocks back, so that no phase inherits
+    the memory state of the one before it."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all); the kernels "
+                             "and ok lines are printed only when all run")
+    phases = parser.parse_args(argv).phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
     import torch
 
     if not torch.cuda.is_available():
@@ -1349,16 +1926,37 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_info(torch)
     phase_build()
-    att = phase_attention(torch)
+    run = [p for p in PHASES if p in phases]
+    att = phase_attention(torch) if "attention" in run else None
     with tempfile.TemporaryDirectory(prefix="vfp_chip_smoke_") as tmp:
-        launches, model_path = phase_scan(torch, Path(tmp))
-        phase_cli(torch, Path(tmp), model_path)
-        conv = phase_convblock(torch, model_path)
-        phase_scan3d(torch, Path(tmp))
-        phase_index(torch, Path(tmp), model_path)
-        phase_train(torch, Path(tmp), smi)
+        work = Path(tmp)
+        model_path, model3d_path = work / "model.pth", work / "model3d.pth"
+        for name in run:
+            _settle(torch)
+            if name in ("cli", "convblock", "index", "native") and not model_path.exists():
+                _write_model(torch, model_path, np.random.default_rng(SEED))  # as phase_scan
+            if name == "native" and not model3d_path.exists():
+                _write_model_3d(torch, model3d_path, np.random.default_rng(SEED + 3))
+            if name == "scan":
+                launches, _ = phase_scan(torch, work)
+            elif name == "cli":
+                phase_cli(torch, work, model_path)
+            elif name == "convblock":
+                conv = phase_convblock(torch, model_path)
+            elif name == "scan3d":
+                phase_scan3d(torch, work)
+            elif name == "index":
+                phase_index(torch, work, model_path, smi)
+            elif name == "train":
+                phase_train(torch, work, smi)
+            elif name == "augment":
+                phase_augment(torch, work, smi)
+            elif name == "native":
+                phase_native(torch, work, model_path, model3d_path, smi)
+    emit({"phase": "done", "phases": run, "seconds": time.perf_counter() - t_start})
+    if run != list(PHASES):
+        return 0
     main_case = att[("float32", 128)]
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi)
     emit({"kernels": [{
         "name": "attention",

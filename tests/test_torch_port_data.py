@@ -60,6 +60,13 @@ def test_black_fallback_frames():
                and not a.any() for a, b in zip(ours, ref))
 
 
-def test_native_decode_says_unavailable(corpus, capsys):
-    tds.VideoFingerprintDataset(corpus, augment=False, mode="val", decode_backend="native")
+def test_native_decode_says_unavailable(corpus, capsys, monkeypatch):
+    """Without the native decoder (no g++ or libav) the loader says so, as
+    the JAX package's does, and decodes with cv2."""
+    from video_fingerprint_tpu_torch.utils import native_decode
+
+    monkeypatch.setattr(native_decode, "available", lambda: False)
+    ds = tds.VideoFingerprintDataset(corpus, augment=False, mode="val",
+                                     decode_backend="native")
     assert "native decode requested but unavailable; using cv2" in capsys.readouterr().out
+    assert not ds._use_native

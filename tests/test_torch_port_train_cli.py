@@ -3,8 +3,9 @@ the CPU: a 2-epoch run of the full-width attention model on a seeded
 corpus of 4 short mp4s (plus one copy) leaves the reference's run-dir
 artifacts, a resume continues at the next epoch with the step counter
 carried, patience 0 stops after the first epoch, the best-checkpoint rule
-keeps its gap tiebreak, and the flags that are not ported exit with an
-error instead of running something else."""
+keeps its gap tiebreak, --device_augment and --native_decode run (the
+config records device_augment), and --orbax, which is not ported, exits
+with an error instead of running something else."""
 
 import json
 
@@ -93,9 +94,37 @@ def test_is_new_best_matches_jax(auc, gap, best_auc, best_gap):
                                                                         best_gap)
 
 
-@pytest.mark.parametrize("flag", ["--orbax", "--device_augment", "--native_decode"])
+@pytest.mark.parametrize("flag", ["--orbax"])
 def test_unported_flags_exit_with_an_error(corpus, tmp_path, monkeypatch, capsys, flag):
     monkeypatch.chdir(tmp_path)
     assert _run(corpus, flag) == 2
     assert "not ported" in capsys.readouterr().out
     assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("model", ["attention", "3d"])
+@pytest.mark.parametrize("flag", ["--device_augment", "--native_decode"])
+def test_ported_flags_run(corpus, tmp_path, monkeypatch, capsys, flag, model):
+    """One epoch with the flag: the artifacts are written, the config
+    records device_augment, and the loaders got the flag's mode."""
+    monkeypatch.chdir(tmp_path)
+    seen = {}
+    real = port_trainer.Trainer.__init__
+
+    def spy(self, model_, train_loader, val_loader, config, run_dir):
+        seen["train"] = (train_loader.dataset.augment_mode, train_loader.dataset.decode_backend)
+        seen["val"] = val_loader.dataset.decode_backend
+        real(self, model_, train_loader, val_loader, config, run_dir)
+
+    monkeypatch.setattr(port_trainer.Trainer, "__init__", spy)
+    extra = ["--clip_length", "16", "--frame_stride", "4", "--batch_size", "1"] \
+        if model == "3d" else []
+    assert _run(corpus, flag, "--epochs", "1", "--run_name", "r", "--model", model, *extra) == 0
+    run = tmp_path / "runs" / "r"
+    assert (run / "checkpoints/last.ckpt").exists()
+    config = json.loads((run / "config.json").read_text())
+    assert config["device_augment"] is (flag == "--device_augment")
+    native = flag == "--native_decode"
+    assert seen["train"] == ("device" if flag == "--device_augment" else "host",
+                             "native" if native else "cv2")
+    assert seen["val"] == ("native" if native else "cv2")

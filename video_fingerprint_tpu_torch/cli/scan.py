@@ -2,10 +2,11 @@
 
 The flag surface of video_fingerprint_tpu/cli/scan.py for a scan on one
 card: either model family (from the checkpoint's config), the persistent
-`--index` (incremental re-scans), and `--against` (query-vs-corpus search).
-`--device` is cuda (default) or cpu; cuda without a card is an error, not a
-fallback. Not ported: `--native_decode`, `--native_preprocess` and
-`--data_parallel`.
+`--index` (incremental re-scans), `--against` (query-vs-corpus search), and
+the native host paths `--native_decode` and `--native_preprocess` (cv2 when
+their library cannot be built, as in the JAX package). `--device` is cuda
+(default) or cpu; cuda without a card is an error, not a fallback. Not
+ported: `--data_parallel` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Device batch size for bucketed extraction")
     parser.add_argument("--no_batched", action="store_true",
                         help="Disable bucketed batching (sequential batch=1)")
+    parser.add_argument("--native_preprocess", action="store_true",
+                        help="Use the native C++ preprocessing runtime (built "
+                             "on first use with g++; cv2 when unavailable)")
+    parser.add_argument("--native_decode", action="store_true",
+                        help="Use the native C++ libav decode worker (fused "
+                             "decode+scale+crop; cv2 when unavailable)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute")
     parser.add_argument("--no_optimize", action="store_true",
@@ -102,8 +109,9 @@ def main(argv=None) -> int:
         return 1
 
     scanner = FingerprintScanner(
-        args.model, device=args.device, batch_size=args.batch, bf16=args.bf16,
-        optimize=not args.no_optimize,
+        args.model, device=args.device, batch_size=args.batch,
+        native_preprocess=args.native_preprocess, native_decode=args.native_decode,
+        bf16=args.bf16, optimize=not args.no_optimize,
     )
 
     video_dir = Path(args.scan)

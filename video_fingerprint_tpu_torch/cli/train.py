@@ -7,8 +7,10 @@ Derived-config rules as there: the 3D model doubles the batch and triples
 the LR (reference train.py:779-781), the attention val loader takes twice
 the batch (train.py:834-837), and no arguments run the quick-test mode
 (train.py:871-875). --bf16 keeps the parameters in f32 and computes in
-bf16. --orbax, --device_augment and --native_decode are not ported yet:
-they exit with an error rather than run something else.
+bf16. --device_augment runs the clip augmentations on the card inside the
+train step (the loaders then apply only resize and JPEG); --native_decode
+decodes eval-mode attention loads with the native libav worker. --orbax is
+not ported: it exits with an error rather than run something else.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ from pathlib import Path
 
 NOT_PORTED = {
     "orbax": "Orbax checkpoint directories are not ported (the port writes .ckpt files)",
-    "device_augment": "--device_augment is not ported yet (ROADMAP item 11)",
-    "native_decode": "--native_decode is not ported yet (ROADMAP item 14)",
 }
 
 
@@ -64,14 +64,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Recompute forward activations in the backward pass "
                         "(torch.utils.checkpoint): less memory, one extra forward")
     p.add_argument("--device_augment", action="store_true",
-                   help="Not ported yet: exits with an error")
+                   help="Run the clip augmentations on the device inside the train "
+                        "step (same transforms and probabilities as the host "
+                        "pipeline); the loader then applies only resize + JPEG "
+                        "recompression")
     p.add_argument("--fast_extracts", action="store_true",
                    help="Attention only: embed the extracts from gathered rows of the "
                         "full forward's per-frame features instead of re-running the "
                         "CNN on gathered pixels (extract frames then see the full "
                         "batch's BN statistics)")
     p.add_argument("--native_decode", action="store_true",
-                   help="Not ported yet: exits with an error")
+                   help="C++ libav fused decode for eval-mode attention loads "
+                        "(cv2 when the library cannot be built; train "
+                        "augmentation always uses cv2 full-res frames)")
     p.add_argument("--auc_flat_eps", type=float, default=1e-3,
                    help="AUC flatness band for the separation-gap tiebreak in "
                         "best-checkpoint selection")
@@ -133,6 +138,7 @@ def main(argv=None) -> int:
         mask_padding=not args.no_mask_padding,
         profile=args.profile,
         extras={"remat": args.remat, "bf16": args.bf16,
+                "device_augment": args.device_augment,
                 "fast_extracts": args.fast_extracts,
                 "debug_nans": args.debug_nans,
                 "checkpoint_backend": "msgpack",
@@ -158,6 +164,8 @@ def main(argv=None) -> int:
         frame_stride=config["frame_stride"],
         model_type=args.model,
         seed=args.seed,
+        decode_backend="native" if args.native_decode else "cv2",
+        augment_mode="device" if args.device_augment else "host",
     )
     train_loader = create_dataloader(args.data_dir, batch_size=config["batch_size"],
                                      mode="train", **loader_args)

@@ -1,9 +1,9 @@
 """Dataset, sample index and bucketed loader: a copy of
 video_fingerprint_tpu/data/dataset.py (the same seeded sampling, so the same
-seed and epoch give the JAX pipeline's arrays), with the native decode path
-left out until the port has its native host paths (ROADMAP item 14):
-decode_backend="native" prints the JAX package's unavailable-decoder message
-and decodes with cv2.
+seed and epoch give the JAX pipeline's arrays). decode_backend="native"
+decodes eval-mode attention loads with the port's native libav worker
+(utils/native_decode.py), and prints the JAX package's message and uses
+cv2 when that library cannot be built.
 
 Reference parity targets: `VideoFingerprintDataset` (dataset.py:12-492),
 `collate_fn_padding` (dataset.py:495-528), `create_dataloader`
@@ -74,11 +74,22 @@ class VideoFingerprintDataset:
         self.cache_videos = cache_videos
         self._cache: Dict[str, List[np.ndarray]] = {}
 
-        # Native fused decode applies to eval-mode attention loads only in
-        # the JAX package; the port has no native decoder yet, so it says
-        # so as JAX does when its decoder is unavailable, and uses cv2.
+        # Native fused decode (C++ libav: demux->decode->scale->crop in one
+        # pass, no full-res RGB in Python) applies to eval-mode attention
+        # loads only: with augment=False the cv2 path is exactly
+        # short-side-resize + center-crop, which is what the worker fuses.
+        # Train-time augmentation needs full-resolution frames, and the 3D
+        # resize uses other (square-crop) semantics; both keep cv2.
+        self.decode_backend = decode_backend
+        self._use_native = False
+        self._native_cache: Dict[str, np.ndarray] = {}
         if decode_backend == "native" and not augment and model_type == "attention":
-            print("native decode requested but unavailable; using cv2")
+            from video_fingerprint_tpu_torch.utils import native_decode as nd
+
+            self._nd = nd
+            self._use_native = nd.available()
+            if not self._use_native:
+                print("native decode requested but unavailable; using cv2")
 
         self.video_paths: List[Path] = []
         for ext in VIDEO_EXTENSIONS:
@@ -250,11 +261,36 @@ class VideoFingerprintDataset:
 
     def _get_attention(self, idx, rng):
         info = self.samples[idx]
+        if self._use_native:
+            sample = self._get_attention_native(info, rng)
+            if sample is not None:
+                return sample
         frames = self._load_full(info["path"], rng)
         s1, s2 = pairs.sample_extract_pair(
             len(frames), rng, self.min_extract_ratio, train=(self.mode == "train")
         )
         return self._finalize_pair(frames[s1], frames[s2], rng, info["video_id"])
+
+    def _get_attention_native(self, info, rng):
+        """Eval-mode fast path: frames arrive resized and cropped from the
+        fused C++ worker, so the per-frame cv2 loop is skipped. None on a
+        decode failure (the cv2 path then handles the file)."""
+        key = str(info["path"])
+        clip = self._native_cache.get(key)
+        if clip is None:
+            clip = self._nd.decode_scan(info["path"], self.max_frames, self.frame_size)
+            if clip is None:
+                return None
+            if self.cache_videos and len(self._native_cache) < 100:
+                self._native_cache[key] = clip
+        s1, s2 = pairs.sample_extract_pair(
+            len(clip), rng, self.min_extract_ratio, train=(self.mode == "train")
+        )
+        return {
+            "clip1": np.ascontiguousarray(clip[s1]),
+            "clip2": np.ascontiguousarray(clip[s2]),
+            "video_id": np.int32(info["video_id"]),
+        }
 
     def _get_3d(self, idx, rng):
         info = self.samples[idx]

@@ -9,7 +9,12 @@ families:
   - a decode producer turns paths into uint8 clips on host threads. The
     attention model takes one subsampled clip per video; the 3D model takes
     windows of up to `clip_length` frames (`window_plan`: one window for a
-    short video, 3-5 evenly strided ones for a longer one);
+    short video, 3-5 evenly strided ones for a longer one). With
+    `native_decode` the native libav worker (utils/native_decode.py)
+    decodes, scales and crops in one pass; with `native_preprocess` (and no
+    native decode) cv2 decodes and the native thread pool (utils/native.py)
+    resizes, crops and normalizes the attention clips to float32, which are
+    then staged as float32;
   - the batching stage (`embed_clips`) pads each clip to a length bucket
     and forwards fixed-shape batches: the attention model masks the padding
     (partial batches get rows whose mask is all False); the 3D model's
@@ -51,6 +56,8 @@ from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
 from video_fingerprint_tpu_torch.ops.topk import topk_cosine
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
+from video_fingerprint_tpu_torch.utils import native
+from video_fingerprint_tpu_torch.utils import native_decode as native_decode_lib
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 from video_fingerprint_tpu_torch.utils.torch_compat import variables_to_state_dict
@@ -113,10 +120,12 @@ class _Staging:
     slot per bucket suffices: its forward has finished before the next fill.
     """
 
-    def __init__(self, device: torch.device, batch_size: int, frame_size: int):
+    def __init__(self, device: torch.device, batch_size: int, frame_size: int,
+                 dtype: torch.dtype = torch.uint8):
         self.device = device
         self.batch_size = batch_size
         self.frame_size = frame_size
+        self.dtype = dtype
         self.pinned = device.type == "cuda"
         self.depth = 2 if self.pinned else 1
         self._slots: Dict[int, list] = {}
@@ -124,7 +133,7 @@ class _Staging:
 
     def _new_slot(self, bucket: int):
         B, fs = self.batch_size, self.frame_size
-        frames = torch.empty((B, bucket, fs, fs, 3), dtype=torch.uint8,
+        frames = torch.empty((B, bucket, fs, fs, 3), dtype=self.dtype,
                              pin_memory=self.pinned)
         mask = torch.empty((B, bucket), dtype=torch.bool, pin_memory=self.pinned)
         copied = torch.cuda.Event() if self.pinned else None
@@ -132,9 +141,9 @@ class _Staging:
 
     def stage(self, bucket: int, clips: Sequence[np.ndarray]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pad `clips` into a (B, bucket, H, W, 3) uint8 batch and a (B, bucket)
-        mask on the device; rows past len(clips) are zero with an all-False
-        mask."""
+        """Pad `clips` into a (B, bucket, H, W, 3) batch of the staging dtype
+        and a (B, bucket) mask on the device; rows past len(clips) are zero
+        with an all-False mask."""
         slots = self._slots.setdefault(bucket, [])
         turn = self._turn.get(bucket, 0)
         self._turn[bucket] = turn + 1
@@ -166,7 +175,10 @@ class FingerprintScanner:
     matmuls; bf16=True casts the model to bfloat16. optimize folds eval
     BatchNorm into the convs (lossless). The model family, its widths and
     the 3D model's clip_length (default 128) and frame_stride (default 32)
-    come from the checkpoint's config.
+    come from the checkpoint's config. native_decode and native_preprocess
+    select the native host paths (utils/native_decode.py, utils/native.py);
+    where a library cannot be built the scanner says so, as the JAX
+    package's does, and decodes with cv2.
     """
 
     def __init__(
@@ -175,11 +187,23 @@ class FingerprintScanner:
         device: str = "cuda",
         batch_size: int = 8,
         buckets: Optional[Sequence[int]] = None,
+        native_preprocess: bool = False,
+        native_decode: bool = False,
         bf16: bool = False,
         optimize: bool = True,
     ):
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        self.native_preprocess = False
+        if native_preprocess:
+            self.native_preprocess = native.available()
+            if not self.native_preprocess:
+                print("native preprocess requested but unavailable; using cv2")
+        self.native_decode = False
+        if native_decode:
+            self.native_decode = native_decode_lib.available()
+            if not self.native_decode:
+                print("native decode requested but unavailable; using cv2")
 
         print(f"Loading model from {model_path}...")
         self.variables, self.config = load_any(model_path)
@@ -230,7 +254,13 @@ class FingerprintScanner:
         self.buckets = tuple(
             b for b in (buckets or SCAN_BUCKETS) if b < self.max_frames
         ) + (self.max_frames,)
-        self._staging = _Staging(self.device, batch_size, self.frame_size)
+        # float32 only from the native preprocess path (the attention
+        # producer without native decode); uint8 from cv2 and native decode
+        self.stage_dtype = (np.float32 if (self.native_preprocess and not self.native_decode
+                                           and not self.is_3d) else np.uint8)
+        self._staging = _Staging(self.device, batch_size, self.frame_size,
+                                 torch.float32 if self.stage_dtype == np.float32
+                                 else torch.uint8)
         print(f"Model loaded - Type: {self.model_type}, Device: {self.device}")
 
     @contextmanager
@@ -255,7 +285,7 @@ class FingerprintScanner:
             lengths = {preprocess.bucket_for_length(min(num_frames, self.max_frames),
                                                     self.buckets)}
         for length in sorted(lengths):
-            frames = torch.zeros((B, length, fs, fs, 3), dtype=torch.uint8,
+            frames = torch.zeros((B, length, fs, fs, 3), dtype=self._staging.dtype,
                                  device=self.device)
             mask = torch.zeros((B, length), dtype=torch.bool, device=self.device)
             mask[:, 0] = True
@@ -497,6 +527,9 @@ class FingerprintScanner:
         def load(job):
             path, _, start, length = job
             try:
+                if self.native_decode:
+                    return native_decode_lib.decode_clip(path, start, length,
+                                                         self.frame_size)
                 return self._window_clip(path, start, length, normalize=False)
             except Exception:  # one unreadable window must not end the scan
                 return None
@@ -508,17 +541,25 @@ class FingerprintScanner:
 
     def decode_clips(self, video_paths: Sequence[Path], num_workers: int
                      ) -> Iterator[Tuple[Path, Optional[np.ndarray]]]:
-        """Decode producer: paths -> (path, (T, H, W, 3) uint8 clip), in path
-        order, decoded by a pool of host threads. A file that fails to decode
-        or has fewer than 10 frames gives (path, None)."""
+        """Decode producer: paths -> (path, (T, H, W, 3) clip of the staging
+        dtype), in path order, decoded by a pool of host threads. A file that
+        fails to decode or has fewer than 10 frames gives (path, None)."""
         work: "queue.Queue" = queue.Queue(maxsize=max(1, num_workers) * 4)
         done = object()
 
         def load(path):
             try:
+                if self.native_decode:  # fused demux->decode->scale->crop
+                    clip = native_decode_lib.decode_scan(path, self.max_frames,
+                                                         self.frame_size)
+                    if clip is None or clip.shape[0] < MIN_FRAMES:
+                        return path, None
+                    return path, clip
                 frames = decode.decode_subsampled(path, self.max_frames)
                 if len(frames) < MIN_FRAMES:
                     return path, None
+                if self.native_preprocess:
+                    return path, native.preprocess_frames(np.stack(frames), self.frame_size)
                 return path, preprocess.preprocess_frames(
                     frames, self.frame_size, normalize=False)
             except Exception:  # one unreadable file must not end the scan
@@ -538,9 +579,10 @@ class FingerprintScanner:
 
     def embed_clips(self, clips: Iterable[Tuple[Hashable, np.ndarray]]
                     ) -> Dict[Hashable, np.ndarray]:
-        """Batching stage: (key, (T, H, W, 3) uint8 clip) pairs -> {key:
-        embedding}, in the order the batches complete. T is 1..max_frames
-        (attention) or 1..clip_length (3D).
+        """Batching stage: (key, (T, H, W, 3) clip) pairs -> {key: embedding},
+        in the order the batches complete. Clips are uint8, or float32 in
+        [0, 1] when the scanner stages float32 (`stage_dtype`: native
+        preprocess). T is 1..max_frames (attention) or 1..clip_length (3D).
 
         Clips are grouped by length bucket (the scan buckets, or the 3D
         model's stride multiples); a bucket's batch is forwarded when it
@@ -564,9 +606,10 @@ class FingerprintScanner:
                 pipeline.dispatch(items, _Readback(embs))
 
         for key, clip in clips:
-            if clip.dtype != np.uint8 or clip.shape[1:] != shape:
+            if clip.dtype != self.stage_dtype or clip.shape[1:] != shape:
                 raise ValueError(f"clip {key!r}: expected (T, {shape[0]}, {shape[1]}, "
-                                 f"3) uint8, got {clip.shape} {clip.dtype}")
+                                 f"3) {np.dtype(self.stage_dtype).name}, got {clip.shape} "
+                                 f"{clip.dtype}")
             if not 1 <= clip.shape[0] <= limit:
                 raise ValueError(f"clip {key!r}: {clip.shape[0]} frames, expected "
                                  f"1..{limit}")

@@ -107,12 +107,12 @@ class VideoFingerprintAttention(nn.Module):
 
     def _encode_flat(self, flat_frames: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) frames -> (N, spatial_dim). uint8 frames are
-        normalized by /255 on the device, in the compute dtype. The
+        normalized by /255 on the device, in the compute dtype; float frames
+        (already in [0, 1]) are cast to it. The
         (N, H, W, C) buffer is viewed as NCHW with channels-last strides,
         which costs nothing."""
         x = flat_frames.permute(0, 3, 1, 2)
-        if x.dtype == torch.uint8:
-            x = x.to(self.dtype) / 255.0
+        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 else x.to(self.dtype)
         return self.spatial_encoder(x)
 
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,41 @@
-"""Exact inner-product top-k for duplicate search and the fingerprint index.
+"""Inner-product top-k for duplicate search and the fingerprint index.
 
-The `method="exact"` contract of video_fingerprint_tpu/ops/topk.py::
-topk_search / topk_cosine: every query's k best corpus rows by inner
-product, self-matches kept, ties broken by the lower corpus index first (as
-`lax.top_k` breaks them). The search is complete at every score, so it is
-also complete above any `exact_above` threshold: the argument is accepted
-for the JAX signature and needs no work here.
+The contracts of video_fingerprint_tpu/ops/topk.py::topk_search /
+topk_cosine. Self-matches are kept, and the result holds, per `method`:
+
+  - "exact": every query's k best corpus rows by inner product, ties
+    broken by the lower corpus index first (as `lax.top_k` breaks them).
+    It is complete at every score, so also above any `exact_above`.
+  - "certified": an approximate first stage with a per-row exactness
+    certificate, and the rows that fail it recomputed by the exact path.
+    Without `exact_above` (the strict certificate) the result is each
+    row's exact top-k score multiset; with it (the threshold certificate)
+    every corpus row scoring >= exact_above is among the k returned, or the
+    row's k are its exact top-k.
+  - "certified-bf16": the threshold certificate over similarities from
+    bf16-rounded operands stored in bf16, widened by the bf16 error bound,
+    with each block's k candidates re-scored in f32 before the blocks merge
+    (so the merge orders true scores) and before the repairs land.
+    Requires `exact_above`.
+  - "auto": "exact" on every device of the port. The JAX package picks a
+    certified method on a TPU only, where approx_max_k runs on the
+    PartialReduce unit; whether one pays on a GPU is for its measured
+    times to show (chip_smoke.py, phase `index`).
+
+The approximate first stage has `jax.lax.approx_max_k`'s meaning, the
+PartialReduce algorithm of Chern et al., "TPU-KNN: K Nearest Neighbor
+Search at Peak FLOP/s" (NeurIPS 2022): split each row into L bins (column j
+in bin j mod L), keep each bin's maximum, take the exact top-k of the bin
+maxima. L is XLA's choice for k and `recall_target` (`approx_bins`); the
+default target is 0.99 for the strict certificate and 0.95 with a
+threshold.
 
 Queries go in tiles of QUERY_BLOCK and the corpus in blocks of CORPUS_BLOCK
-rows, so one score block holds 1024 x 65,536 f32 (256 MiB) whatever the
-corpus size; each block's top-k is merged into the tile's. Scores are
-float32 with TF32 off: duplicate thresholds sit at 0.95-0.99 and need
-errors near 1e-6, not TF32's 1e-3.
+rows, so one score block holds 1024 x 65,536 scores whatever the corpus
+size; each block's top-k is merged into the tile's. The certified methods
+certify each (tile, block) pair and a row only when every block
+certified it. Scores are float32 with TF32 off: duplicate thresholds sit at
+0.95-0.99 and need errors near 1e-6, not TF32's 1e-3.
 
 A bfloat16 corpus (the index's bf16 storage, `stage_corpus`) stays bf16 on
 the device; each block is upcast to f32 (exact for bf16 values) just before
@@ -20,12 +44,14 @@ exact f32 reciprocal row norms of both sides (`_row_rnorm`), so reported
 scores are true cosines of the stored vectors and byte-identical rows score
 1.0 to within an f32 rounding (JAX ops/topk.py:224-273).
 
-The selection modes "certified" and "certified-bf16" (the JAX `method=`
-argument) are not ported (ROADMAP.md, module item 13).
+`repaired_rows` counts the rows the certified methods sent to the exact
+repair since import.
 """
 
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,6 +61,21 @@ from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 QUERY_BLOCK = 1024  # queries per tile
 CORPUS_BLOCK = 1 << 16  # corpus rows per score block
+METHODS = ("auto", "exact", "certified", "certified-bf16")
+# approx_max_k's reduction keeps at least this many bins (XLA's TPU tiling)
+_MIN_BINS = 128
+
+# Error bound of sims from bf16-rounded unit-norm operands, f32 accumulation,
+# stored as bf16, against the f32 inner product (JAX ops/topk.py:172-190):
+# 2 * 2^-8 + 2^-16 for the inputs' rounding, < 1e-5 accumulation over D <=
+# 1024, 2^-9 for the stored value; 0.0099 in all, widened to 0.0105.
+_BF16_DOT_EPS = 0.0105
+# The same for a bf16-stored corpus, whose operands are exact: accumulation,
+# the norm rescale and the stored value's 2^-9; 0.0021, widened to 0.003
+# (JAX ops/topk.py:192-205).
+_BF16_STORE_EPS = 0.003
+
+repaired_rows = 0
 
 
 def _order(scores: torch.Tensor, idx: torch.Tensor, k: int
@@ -91,44 +132,233 @@ def stage_corpus(corpus, device, dtype: torch.dtype = torch.float32) -> torch.Te
     return host.to(dtype).to(device)
 
 
-def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                exact_above: Optional[float] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(M, D) queries x (N, D) corpus -> (scores (M, k) f32, indices (M, k)
-    int64), on the queries' device. A bf16 corpus is searched in the cosine
-    domain of its stored rows (module docstring). `exact_above` is accepted
-    and ignored: the search is exact at every score."""
-    del exact_above  # complete above any threshold already
-    n = corpus.shape[0]
-    if not 0 < k <= n:
-        raise ValueError(f"k must be in [1, {n}], got {k}")
-    corpus = corpus.to(queries.device)
-    cosine = corpus.dtype == torch.bfloat16
-    queries = queries.to(torch.bfloat16).float() if cosine else queries.float()
-    if cosine:
-        corpus_rnorm, query_rnorm = _row_rnorm(corpus), _row_rnorm(queries)
+def approx_bins(n: int, k: int, recall: float) -> int:
+    """L, the number of bins approx_max_k reduces a row of n to for top-k at
+    `recall` (XLA's ApproxTopKReductionOutputSize): with M bins a true
+    top-k element collides with none of the other k - 1 with probability
+    ((M - 1) / M)^(k - 1); solving for `recall` gives M = (k - 1) /
+    ln(1 / recall), at least 128. Each bin spans a window of W columns, W
+    the largest power of two within n / M, and L is n / W rounded up to a
+    multiple of 128. n (no reduction) when W is 1. For k = 1 the maximum of
+    the maxima is exact at any L: 128 bins."""
+    if k == 1:
+        return min(n, _MIN_BINS)
+    if recall >= 1.0:
+        return n
+    m = min(max(int((1.0 - k) / math.log(recall)), _MIN_BINS), n)
+    log2_window = (n // m).bit_length() - 1
+    if log2_window <= 0:
+        return n
+    return -(-n // (_MIN_BINS << log2_window)) * _MIN_BINS
+
+
+def _approx_topk(sims: torch.Tensor, k: int, recall: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """approx_max_k's PartialReduce on each row: the maximum of every bin
+    (columns j with the same j mod L), then the exact top-k of the L
+    maxima, sorted descending. The scores are elements of `sims`."""
+    rows, n = sims.shape
+    bins = approx_bins(n, k, recall)
+    if bins >= n or bins < k:
+        return torch.topk(sims, k, dim=1)
+    window = -(-n // bins)
+    if window * bins != n:  # pad the row with -inf to window * bins columns
+        sims = torch.nn.functional.pad(sims, (0, window * bins - n), value=-math.inf)
+    maxima, pos_in_bin = sims.view(rows, window, bins).max(dim=1)
+    scores, bin_idx = torch.topk(maxima, k, dim=1)
+    return scores, pos_in_bin.gather(1, bin_idx) * bins + bin_idx
+
+
+def _certificate(sims: torch.Tensor, scores: torch.Tensor, k: int, thr: Optional[float],
+                 lowp: bool, eps: float) -> torch.Tensor:
+    """(rows,) bool: the approximate `scores` of this block are provably its
+    exact top-k score multiset (strict: thr None), or hold every element
+    >= thr (threshold), as JAX ops/topk.py::_tile_topk. The returned scores
+    are elements of `sims`, so the counts compare the same values.
+
+    strict: count(sims > s_k) == count(scores > s_k), s_k the k-th score.
+    threshold: count(sims >= thr) == count(scores >= thr), and either fewer
+    than k elements reach thr or the strict certificate holds.
+    lowp (bf16 sims): the threshold lowered by eps; a bf16 tensor against a
+    Python float compares on the bf16 grid, where no grid point lies
+    between thr - eps and its rounding, so the set is that of the exact
+    comparison. Rows with k or more such elements fail (a strict
+    certificate cannot be read from noisy scores)."""
+    if lowp:
+        cut = thr - eps
+        n_thr = (sims >= cut).sum(dim=1)
+        return (n_thr == (scores >= cut).sum(dim=1)) & (n_thr < k)
+    s_k = scores[:, k - 1:k]
+    strict = (sims > s_k).sum(dim=1) == (scores > s_k).sum(dim=1)
+    if thr is None:
+        return strict
+    n_thr = (sims >= thr).sum(dim=1)
+    return (n_thr == (scores >= thr).sum(dim=1)) & ((n_thr < k) | strict)
+
+
+@contextmanager
+def _bf16_f32_reduction():
+    """cuBLAS bf16 matmuls accumulate in f32 inside the block: the error
+    bound of the bf16 first pass assumes it."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+class _Problem:
+    """Queries and corpus of one search on one device, with what the score
+    blocks need: queries rounded to bf16 and both sides' exact reciprocal
+    norms when the corpus is bf16 (the cosine domain)."""
+
+    def __init__(self, queries: torch.Tensor, corpus: torch.Tensor):
+        self.corpus = corpus.to(queries.device)
+        self.cosine = self.corpus.dtype == torch.bfloat16
+        self.queries = (queries.to(torch.bfloat16).float() if self.cosine
+                        else queries.float())
+        if self.cosine:
+            self.corpus_rnorm = _row_rnorm(self.corpus)
+            self.query_rnorm = _row_rnorm(self.queries)
+
+    def rows(self, index: torch.Tensor) -> "_Problem":
+        """The same corpus against the queries at `index`."""
+        sub = object.__new__(_Problem)
+        sub.corpus, sub.cosine = self.corpus, self.cosine
+        sub.queries = self.queries[index]
+        if self.cosine:
+            sub.corpus_rnorm, sub.query_rnorm = self.corpus_rnorm, self.query_rnorm[index]
+        return sub
+
+    def sims(self, qlo: int, clo: int) -> torch.Tensor:
+        """f32 scores of the query tile at qlo against the corpus block at clo."""
+        q = self.queries[qlo:qlo + QUERY_BLOCK]
+        block = self.corpus[clo:clo + CORPUS_BLOCK]
+        sims = q @ block.float().t()
+        if self.cosine:
+            sims = (sims * self.corpus_rnorm[None, clo:clo + CORPUS_BLOCK]
+                    * self.query_rnorm[qlo:qlo + QUERY_BLOCK, None])
+        return sims
+
+    def sims_bf16(self, qlo: int, clo: int) -> torch.Tensor:
+        """bf16 scores for the certified-bf16 first pass: a bf16 product of
+        the bf16-rounded operands with f32 accumulation, or for a bf16
+        corpus the f32 cosine rounded to bf16 (its operands are exact)."""
+        if self.cosine:
+            return self.sims(qlo, clo).to(torch.bfloat16)
+        q = self.queries[qlo:qlo + QUERY_BLOCK].to(torch.bfloat16)
+        with _bf16_f32_reduction():
+            return q @ self.corpus[clo:clo + CORPUS_BLOCK].to(torch.bfloat16).t()
+
+
+def _merge(cand_s, cand_i, k):
+    if len(cand_s) == 1:
+        return cand_s[0], cand_i[0]
+    return _order(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1), k)
+
+
+def _exact(p: _Problem, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = p.corpus.shape[0]
     out_s, out_i = [], []
-    with full_fp32():
-        for qlo in range(0, queries.shape[0], QUERY_BLOCK):
-            q = queries[qlo:qlo + QUERY_BLOCK]
-            cand_s, cand_i = [], []
-            for clo in range(0, n, CORPUS_BLOCK):
-                block = corpus[clo:clo + CORPUS_BLOCK]
-                sims = q @ block.float().t()
-                if cosine:
-                    sims = (sims * corpus_rnorm[None, clo:clo + CORPUS_BLOCK]
-                            * query_rnorm[qlo:qlo + QUERY_BLOCK, None])
-                s, i = _topk_low_index_ties(sims, min(k, block.shape[0]))
-                cand_s.append(s)
-                cand_i.append(i + clo)
-            s, i = ((cand_s[0], cand_i[0]) if len(cand_s) == 1 else
-                    _order(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1), k))
-            out_s.append(s)
-            out_i.append(i)
+    for qlo in range(0, p.queries.shape[0], QUERY_BLOCK):
+        cand_s, cand_i = [], []
+        for clo in range(0, n, CORPUS_BLOCK):
+            s, i = _topk_low_index_ties(p.sims(qlo, clo), min(k, CORPUS_BLOCK, n - clo))
+            cand_s.append(s)
+            cand_i.append(i + clo)
+        s, i = _merge(cand_s, cand_i, k)
+        out_s.append(s)
+        out_i.append(i)
     return torch.cat(out_s), torch.cat(out_i)
 
 
-def topk_cosine(embeddings: torch.Tensor, k: int, exact_above: Optional[float] = None
+def _certified(p: _Problem, k: int, recall: float, thr: Optional[float], lowp: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The approximate first stage per (tile, block) with its certificate:
+    (scores, indices, ok) where ok is the AND over the blocks."""
+    n = p.corpus.shape[0]
+    eps = _BF16_STORE_EPS if p.cosine else _BF16_DOT_EPS
+    out_s, out_i, out_ok = [], [], []
+    for qlo in range(0, p.queries.shape[0], QUERY_BLOCK):
+        cand_s, cand_i, ok = [], [], None
+        for clo in range(0, n, CORPUS_BLOCK):
+            sims = p.sims_bf16(qlo, clo) if lowp else p.sims(qlo, clo)
+            kk = min(k, CORPUS_BLOCK, n - clo)
+            s, i = _approx_topk(sims, kk, recall)
+            block_ok = _certificate(sims, s, kk, thr, lowp, eps)
+            ok = block_ok if ok is None else ok & block_ok
+            if lowp:  # f32 scores before the blocks merge, so the merge is exact
+                s, i = _rescore(p, s.float(), i + clo, qlo)
+            else:
+                i = i + clo
+            cand_s.append(s)
+            cand_i.append(i)
+        s, i = _merge(cand_s, cand_i, k)
+        out_s.append(s)
+        out_i.append(i)
+        out_ok.append(ok)
+    return torch.cat(out_s), torch.cat(out_i), torch.cat(out_ok)
+
+
+def _rescore(p: _Problem, scores: torch.Tensor, idx: torch.Tensor, qlo: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-score the (M, k) candidates of the M queries from qlo on in f32
+    (TF32 off) and re-sort each row by (score desc, index asc); slots
+    holding -inf stay -inf. A bf16 corpus scores in the cosine domain of
+    the bf16-rounded queries, as the certificate and the exact repairs do
+    (JAX ops/topk.py:375-422)."""
+    rows = slice(qlo, qlo + idx.shape[0])
+    cand = p.corpus[idx].float()  # (M, k, D): only the candidates upcast
+    hi = torch.einsum("md,mkd->mk", p.queries[rows], cand)
+    if p.cosine:
+        cn2 = (cand * cand).sum(dim=-1)
+        crn = torch.where(cn2 > 0, torch.rsqrt(cn2), torch.zeros_like(cn2))
+        hi = hi * crn * p.query_rnorm[rows, None]
+    hi = torch.where(torch.isneginf(scores), -math.inf, hi)
+    return _order(hi, idx, idx.shape[1])
+
+
+def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                exact_above: Optional[float] = None, method: str = "auto",
+                recall_target: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, D) queries x (N, D) corpus -> (scores (M, k) f32, indices (M, k)
+    int64), on the queries' device, by `method` (module docstring). A bf16
+    corpus is searched in the cosine domain of its stored rows.
+    recall_target: the approximate stage's target, None for 0.99 (strict)
+    or 0.95 (with exact_above)."""
+    global repaired_rows
+    n = corpus.shape[0]
+    if not 0 < k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    if method not in METHODS:
+        raise ValueError(f"unknown top-k method {method!r}")
+    if method == "auto":
+        method = "exact"
+    lowp = method == "certified-bf16"
+    if lowp and exact_above is None:
+        raise ValueError(
+            "method='certified-bf16' needs exact_above: the widened "
+            "certificate is threshold-only (strict exactness cannot be "
+            "certified from single-pass bf16 scores)")
+    if recall_target is None:
+        recall_target = 0.99 if exact_above is None else 0.95
+    p = _Problem(queries, corpus)
+    with full_fp32():
+        if method == "exact":
+            return _exact(p, k)
+        scores, idx, ok = _certified(p, k, recall_target, exact_above, lowp)
+        bad = (~ok).nonzero()[:, 0]
+        if len(bad):
+            repaired_rows += len(bad)
+            scores[bad], idx[bad] = _exact(p.rows(bad), k)
+        return scores, idx
+
+
+def topk_cosine(embeddings: torch.Tensor, k: int, exact_above: Optional[float] = None,
+                method: str = "auto", recall_target: Optional[float] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-search: (N, D) embeddings -> (scores (N, k), indices (N, k))."""
-    return topk_search(embeddings, embeddings, k, exact_above)
+    return topk_search(embeddings, embeddings, k, exact_above, method, recall_target)

@@ -8,11 +8,15 @@ embeddings.
 
 Clips stay uint8 through the extract gather: the models divide uint8 input
 by 255 in their compute dtype, the JAX step's `normalize_clip`, so the
-copies to the card and the gathers move 4x fewer bytes.
+copies to the card and the gathers move 4x fewer bytes. With
+`device_augment` the clips become f32 in [0, 1] first and are augmented on
+the device (ops/device_augment.py), each side with its own draws, before
+the extracts are sampled.
 
 Drawing is split from applying. `draw_extracts` draws the per-sample
 extract lengths and the uniform start variates from an explicit
-torch.Generator; `sample_extracts` and the loss take those draws as
+torch.Generator, and `draw_augmentations` both sides' augmentation
+parameters and noise; `sample_extracts` and the loss take those draws as
 arguments, so a test can feed in the JAX package's draws. Dropout draws
 come from torch's own generator.
 
@@ -29,6 +33,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from video_fingerprint_tpu_torch.ops import device_augment as daug
 from video_fingerprint_tpu_torch.ops.losses import (
     attention_contrastive_loss,
     cnn3d_contrastive_loss,
@@ -54,6 +59,18 @@ def draw_extracts(generator: torch.Generator, B: int, T: int,
     u1 = torch.rand((B,), generator=generator)
     u2 = torch.rand((B,), generator=generator)
     return {"lengths": lengths, "u1": u1, "u2": u2}
+
+
+def draw_augmentations(generator: torch.Generator, batch: Batch) -> Dict[str, Dict]:
+    """Both sides' device-augment draws, on the generator's device: per-frame
+    parameters and Gaussian noise for clip1 ('aug1') and clip2 ('aug2')."""
+    shape = batch["clip1"].shape
+    return {"aug1": daug.draw(generator, shape), "aug2": daug.draw(generator, shape)}
+
+
+def normalize_clip(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> f32 [0, 1]; float passes through."""
+    return x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x
 
 
 def sample_extracts(video: torch.Tensor, lengths: torch.Tensor, u: torch.Tensor,
@@ -148,7 +165,14 @@ def make_loss_fn(
 
     batch: {'clip1', 'clip2': (B, T, H, W, C) uint8 or float, 'video_id':
     (B,), 'mask1', 'mask2': (B, T) bool (optional)}; draws: `draw_extracts`'s
-    output (attention), None for the 3D model.
+    output (attention), None for the 3D model, with `draw_augmentations`'s
+    entries added under device_augment.
+
+    device_augment=True augments each side on the device with its own draws
+    (JAX train_step.py:201-209): clips to f32 in [0, 1], then the
+    transforms, then padded frames re-zeroed by the mask, before the
+    extracts are sampled. The loader then ships clips augmented only by
+    resize and JPEG (data/dataset.py, augment_mode="device").
 
     remat=True recomputes each forward's activations in the backward
     (torch.utils.checkpoint per forward, as jax.checkpoint in JAX), with the
@@ -160,9 +184,6 @@ def make_loss_fn(
     normalized with the full batch's BN statistics, and the encoder's
     running statistics see one update per step instead of two.
     """
-    if device_augment:
-        raise NotImplementedError("device_augment is not ported yet (ROADMAP item 11)")
-
     def remat_fn(fn):
         if not remat:
             return fn
@@ -177,6 +198,9 @@ def make_loss_fn(
 
     def loss_fn(batch: Batch, draws=None):
         clip1, clip2 = batch["clip1"], batch["clip2"]
+        if device_augment:  # padded frames re-zeroed by the batch's masks
+            clip1 = daug.apply_drawn(draws["aug1"], normalize_clip(clip1), batch.get("mask1"))
+            clip2 = daug.apply_drawn(draws["aug2"], normalize_clip(clip2), batch.get("mask2"))
         B = clip1.shape[0]
         video_ids = batch.get("video_id") if use_triplet else None
         temperature = model.temperature

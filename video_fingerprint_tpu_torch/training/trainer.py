@@ -15,7 +15,9 @@ train.py:17-703) for one card (or the CPU when the config says so):
     dense metrics below `streaming_metrics_threshold` embeddings and the
     streaming path above it, and the extract-robustness cosines;
   - early stopping on AUC-ROC with patience, with the separation-gap
-    tiebreak of `is_new_best`.
+    tiebreak of `is_new_best`;
+  - with `device_augment`, the clip augmentations drawn on the device from
+    a generator seeded from the config seed and applied in the train step.
 
 The host reads the train metrics back only every `metrics_every` steps.
 Multi-device training (the JAX package's wraparound padding and replicated
@@ -43,6 +45,7 @@ from video_fingerprint_tpu_torch.training import checkpoint as ckpt
 from video_fingerprint_tpu_torch.training.optim import current_lr, make_optimizer
 from video_fingerprint_tpu_torch.training.train_step import (
     compute_context,
+    draw_augmentations,
     draw_extracts,
     make_eval_step,
     make_train_step,
@@ -137,6 +140,12 @@ class Trainer:
                                         bf16=self.bf16)
         self.extract_ratio = config.get("min_extract_ratio", 0.5)
         self.step_generator = torch.Generator().manual_seed(config.get("seed", 0) + 1)
+        # the device-augment draws (B*T*H*W*C noise values per side) are
+        # made on the device
+        self.augment_generator = None
+        if config.get("device_augment", False):
+            self.augment_generator = torch.Generator(device=self.device).manual_seed(
+                config.get("seed", 0) + 2)
 
         self.checkpoint_dir = self.run_dir / "checkpoints"
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
@@ -191,11 +200,15 @@ class Trainer:
         ]
         (self.run_dir / "training_info.txt").write_text("\n".join(lines) + "\n")
 
-    def _draws(self, batch: Dict[str, torch.Tensor], generator, ratio: float):
-        if self.model_type != "attention":
-            return None
-        B, T = batch["clip1"].shape[:2]
-        return draw_extracts(generator, B, T, ratio)
+    def _draws(self, batch: Dict[str, torch.Tensor], generator, ratio: float,
+               augment: bool = False):
+        draws = {}
+        if self.model_type == "attention":
+            B, T = batch["clip1"].shape[:2]
+            draws.update(draw_extracts(generator, B, T, ratio))
+        if augment:
+            draws.update(draw_augmentations(self.augment_generator, batch))
+        return draws or None
 
     # ------------------------------------------------------------------
     def train_epoch(self) -> Dict[str, float]:
@@ -225,9 +238,9 @@ class Trainer:
             if profile_window and num_batches == profile_window[0]:
                 profiler = self._start_profiler()
             dev = _to_device(batch, self.device)
-            metrics = self.train_step(dev, self._draws(dev, self.step_generator,
-                                                       self.extract_ratio),
-                                      self.global_step)
+            draws = self._draws(dev, self.step_generator, self.extract_ratio,
+                                augment=self.augment_generator is not None)
+            metrics = self.train_step(dev, draws, self.global_step)
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
             num_batches += 1
 
