@@ -80,7 +80,25 @@ Phases, each of which raises (exit code 1) on any failure:
      against the cv2 scan (cosine >= 0.999, equal duplicate groups), with
      batching-stage videos/s per mode; where vfp_decode built, also
      decode_scan against the cv2 path (mean |diff| < 3) and the 3D scan
-     with --native_decode against the cv2 3D scan.
+     with --native_decode against the cv2 3D scan;
+ 11. multi-device, every path on the one card (a device list that repeats
+     cuda:0, or ranks that share it): the data-parallel scan of phase 3's
+     clips over 2 and 4 shards and phase 6's 3D scan over 2, held against
+     the one-card scan (cosine >= 0.9999, equal groups through the direct
+     and the sharded ring top-k), K1 launched 4 times per forward per
+     shard, videos/s at bucket 128 per shard count; sharded_topk_search
+     over 4 shards on phase 7's 10^6 index (f32 and bf16 storage) and the
+     ring sharded_topk_cosine on its 10^5 self-search, held against the
+     one-card exact search (indices equal, scores within 1e-5) and the
+     float64 oracle, with the certified methods to phase 7's contracts and
+     ms beside the one-card ms; two spawned gloo ranks on cuda:0, each with
+     half of a global batch (attention B = 64, T = 64, 2 steps; 3D B = 128,
+     one step), held against the same steps in one process (loss, grad
+     norm, params, BN statistics); the train CLI for one epoch under
+     `python -m torch.distributed.run --standalone --nproc_per_node 1`
+     (NCCL, world 1) and without it, with its artifacts, K1 in validation
+     only and the steps/s of both. Its times are k shards or ranks on one
+     card: the cost of sharding, not a speed-up.
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -1018,7 +1036,7 @@ def _check_threshold(scores, idx, sims, thr: float, what: str):
 
 
 def _certified_methods(torch, search, exact_scores, checked, sims, oracle_idx, planted,
-                       exact_ms, bound, what, smi):
+                       exact_ms, bound, what, smi, phase="index"):
     """Each certified method on the search that exact answered: strict gives
     exact's score multiset (all rows) and the oracle's top-k on the oracle
     rows; the threshold methods are complete above 0.95 with scores within
@@ -1056,9 +1074,35 @@ def _certified_methods(torch, search, exact_scores, checked, sims, oracle_idx, p
         out[name] = {"ms": ms, "exact_ms": exact_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "rows": len(exact_scores),
                      "repaired_rows": repaired, "max_score_err": err, **extra}
-        emit({"phase": "index", "check": "certified", "search": what, "method": name,
+        emit({"phase": phase, "check": "certified", "search": what, "method": name,
               "smi": smi, **out[name]})
     return out
+
+
+def _index_data():
+    """The index phase's seeded data: 1,000,000 unit rows with 256 planted
+    near copies (src -> dst), 4,096 queries (both sides of every pair, 2,048
+    corpus rows, fresh rows) and the 16 oracle-checked query rows; the
+    generator is returned to draw the self-search rows next."""
+    rng = np.random.default_rng(SEED + 5)
+    corpus = _unit_rows(rng, INDEX_ROWS)
+    src, dst = np.split(rng.choice(INDEX_ROWS, 512, replace=False), 2)
+    noisy = corpus[src] + rng.standard_normal((256, EMB_DIM), dtype=np.float32) * 0.002
+    corpus[dst] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    planted_cos = np.sum(corpus[src] * corpus[dst], axis=1)
+    require(bool(planted_cos.min() >= 0.999), f"planted cosine {planted_cos.min()}")
+    queries = np.concatenate([corpus[src], corpus[dst],
+                              corpus[rng.choice(INDEX_ROWS, 2048, replace=False)],
+                              _unit_rows(rng, INDEX_QUERIES - 2560)])
+    checked = np.concatenate([np.arange(8), 256 + np.arange(4), 3000 + np.arange(4)])
+    return rng, corpus, src, dst, planted_cos, queries, checked
+
+
+def _self_search_rows(rng):
+    """10^5 seeded unit rows, row 1000 j + 1 a byte-identical copy of row 1000 j."""
+    emb = _unit_rows(rng, SELF_SEARCH_ROWS)
+    emb[1::1000] = emb[::1000][: len(emb[1::1000])]
+    return emb
 
 
 def phase_index(torch, workdir: Path, model_path: Path, smi: str):
@@ -1082,17 +1126,7 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         flows[storage] = {**card, "attention_launches": launches["attention"]}
 
     # (b) 1,000,000 seeded unit rows with 256 planted near copies
-    rng = np.random.default_rng(SEED + 5)
-    corpus = _unit_rows(rng, INDEX_ROWS)
-    src, dst = np.split(rng.choice(INDEX_ROWS, 512, replace=False), 2)
-    noisy = corpus[src] + rng.standard_normal((256, EMB_DIM), dtype=np.float32) * 0.002
-    corpus[dst] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
-    planted_cos = np.sum(corpus[src] * corpus[dst], axis=1)
-    require(bool(planted_cos.min() >= 0.999), f"planted cosine {planted_cos.min()}")
-    queries = np.concatenate([corpus[src], corpus[dst],
-                              corpus[rng.choice(INDEX_ROWS, 2048, replace=False)],
-                              _unit_rows(rng, INDEX_QUERIES - 2560)])
-    checked = np.concatenate([np.arange(8), 256 + np.arange(4), 3000 + np.arange(4)])
+    rng, corpus, src, dst, planted_cos, queries, checked = _index_data()
     search = {}
     for storage in ("f32", "bf16"):
         index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
@@ -1141,8 +1175,7 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
     del corpus
 
     # (c) the scanner's top-k duplicate search at library size
-    emb = _unit_rows(rng, SELF_SEARCH_ROWS)
-    emb[1::1000] = emb[::1000][: len(emb[1::1000])]  # byte-identical copies
+    emb = _self_search_rows(rng)
     e_dev = torch.from_numpy(emb).to(CARD)
     scores, idx = (t.cpu().numpy() for t in topk_cosine(e_dev, 20, exact_above=0.99))
     rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
@@ -1896,8 +1929,437 @@ def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi
     return report
 
 
+# ---------------------------------------------------------------- multigpu
+#
+# The script needs one card: every multi-device path runs there with
+# its shards or ranks on that card (a device list that repeats cuda:0, or
+# two gloo ranks on cuda:0; NCCL refuses two ranks on one GPU). The phase
+# shows that k shards or ranks compute what one device does; its times are
+# those of k shards on one H100, the cost of sharding, not a gain.
+
+MULTI_SHARDS = (2, 4)
+DP_TRAIN_B = 64          # the global batch of the two-rank train step
+DP_TRAIN_B3D = 128
+DP_STEPS = 2
+
+
+def _dp_scan(torch, workdir: Path, smi: str):
+    """Phase 3's 204 seeded clips through the attention scan at B = 64 on
+    one card and over [cuda:0] x 2 and x 4: cosine >= 0.9999 per clip, equal
+    duplicate groups (direct, and top-k: the ring over the shards), K1
+    launched 4 times per forward per shard; videos/s at bucket 128 for each,
+    k shards on one card. Then phase 6's 3D scan over [cuda:0] x 2."""
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+
+    rng = np.random.default_rng(SEED)
+    model_path = workdir / "model_multigpu.pth"
+    _write_model(torch, model_path, rng)  # phase 3's draws: its clips come next
+    items, pairs = _seeded_clips(rng)
+    per_bucket = {}
+    for _, clip in items:
+        b = next(b for b in BUCKETS if clip.shape[0] <= b)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    forwards = sum(-(-n // BATCH) for n in per_bucket.values())
+
+    def fps_of(embs):
+        return {k: {"embedding": embs[k], "path": k, "name": k, "size": c.nbytes,
+                    "file_hash": hashlib.md5(c.tobytes()).hexdigest()} for k, c in items}
+
+    clips128 = [(i, rng.integers(0, 256, (128, 64, 64, 3), dtype=np.uint8))
+                for i in range(4 * BATCH)]
+    rows, single = {}, None
+    for shards in (1,) + MULTI_SHARDS:
+        dp = [CARD] * shards if shards > 1 else False
+        with contextlib.redirect_stdout(io.StringIO()):
+            scanner = FingerprintScanner(str(model_path), device=CARD, batch_size=BATCH,
+                                         data_parallel=dp)
+        scanner.warmup()
+        _zero_launches()
+        embs = scanner.embed_clips(items)
+        torch.cuda.synchronize()
+        launches = _launches()
+        require(launches["attention"] == 4 * forwards * shards,
+                f"{shards} shards: K1 launched {launches['attention']} times, "
+                f"not 4 x {forwards} forwards x {shards}")
+        E = np.stack([embs[k] for k, _ in items])
+        require(bool(np.isfinite(E).all()), f"{shards} shards: non-finite embeddings")
+        if single is None:
+            single, threshold = embs, _planted_threshold(E, [k for k, _ in items], pairs)[0]
+        cos = min(float(np.dot(embs[k], single[k])) for k, _ in items)
+        require(cos >= 0.9999, f"{shards} shards vs one card: cosine {cos}")
+        groups = {}
+        for route, topk_threshold in (("direct", 10 ** 9), ("topk", 100)):
+            with contextlib.redirect_stdout(io.StringIO()):
+                groups[route] = _groups(scanner.find_duplicates(fps_of(embs), threshold,
+                                                                topk_threshold))
+            require(groups[route] == sorted(sorted(p) for p in pairs),
+                     f"{shards} shards {route}: groups {groups[route]} != planted copies")
+        scanner.embed_clips(clips128[:BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scanner.embed_clips(clips128)
+        torch.cuda.synchronize()
+        rows[shards] = {"batch": scanner.batch_size, "attention_launches": launches["attention"],
+                        "forwards": forwards, "min_cos_vs_one_card": cos,
+                        "groups": {r: len(g) for r, g in groups.items()},
+                        "b128_stage_videos_per_s": len(clips128) / (time.perf_counter() - t0)}
+        emit({"phase": "multigpu", "check": "dp_scan", "shards_on_one_card": shards,
+              "smi": smi, **rows[shards]})
+        del scanner
+
+    rng3 = np.random.default_rng(SEED + 3)
+    model3d = workdir / "model3d_multigpu.pth"
+    _write_model_3d(torch, model3d, rng3)
+    out3d = {}
+    for shards in (1, 2):
+        dp = [CARD] * shards if shards > 1 else False
+        with contextlib.redirect_stdout(io.StringIO()):
+            scanner = FingerprintScanner(str(model3d), device=CARD, batch_size=BATCH,
+                                         data_parallel=dp)
+        if shards == 1:
+            videos, pairs3d = _seeded_videos_3d(rng3, scanner)
+        _zero_launches()
+        out3d[shards] = _video_embeddings(scanner, videos)
+        torch.cuda.synchronize()
+        require(not any(_launches().values()), "a hand kernel ran in the 3D scan")
+        keys = list(videos)
+        fps = {k: {"embedding": out3d[shards][k], "path": k, "name": k, "size": 0,
+                   "file_hash": hashlib.md5(b"".join(w.tobytes() for w in videos[k])).hexdigest()}
+               for k in keys}
+        if shards == 1:
+            threshold3d = _planted_threshold(np.stack([out3d[1][k] for k in keys]), keys,
+                                             pairs3d)[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            g = _groups(scanner.find_duplicates(fps, threshold3d, 100))
+        require(g == sorted(sorted(p) for p in pairs3d), f"3D {shards} shards: groups {g}")
+        del scanner
+    cos3d = min(float(np.dot(out3d[2][k], out3d[1][k])) for k in out3d[1])
+    require(cos3d >= 0.9999, f"3D over 2 shards vs one card: cosine {cos3d}")
+    return {"attention": rows, "3d": {"videos": len(out3d[1]), "min_cos_vs_one_card": cos3d,
+                                      "groups": len(pairs3d)}}
+
+
+def _dp_search(torch, smi: str):
+    """Phase 7's seeded index (10^6 x 256, 4,096 queries, k = 20) through
+    sharded_topk_search over [cuda:0] x 4 in f32 and bf16 storage, and the
+    ring sharded_topk_cosine on the 10^5 self-search: exact equal to the
+    single-device exact search (indices, scores within 1e-5) and the float64
+    oracle; the certified methods to phase 7's contracts; ms beside the
+    single-device exact ms and the bound (the same work: 4 shards on one
+    card)."""
+    from video_fingerprint_tpu_torch.inference.index import bf16_bits, bf16_values
+    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    devices = [CARD] * 4
+    rng, corpus, src, dst, _, queries, checked = _index_data()
+    planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
+    out = {}
+    for storage in ("f32", "bf16"):
+        dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+        staged = topk.stage_sharded_corpus(corpus, devices, dtype)
+        single = topk.stage_corpus(corpus, CARD, dtype)
+        q_dev = torch.from_numpy(queries).to(CARD)
+        _zero_launches()
+        scores, idx = (t.cpu().numpy() for t in topk.sharded_topk_search(q_dev, staged, 20))
+        require(not any(_launches().values()), "a hand kernel ran in the sharded search")
+        ref_s, ref_i = (t.cpu().numpy() for t in topk.topk_search(q_dev, single, 20))
+        require(bool((idx == ref_i).all()), f"sharded {storage}: indices differ from one card")
+        diff = float(np.abs(scores - ref_s).max())
+        require(diff <= 1e-5, f"sharded {storage}: scores off one card's by {diff}")
+        cosine = storage == "bf16"
+        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
+        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
+        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
+        del stored
+        err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx, f"sharded {storage}")
+        ms = cuda_ms(lambda: topk.sharded_topk_search(q_dev, staged, 20))
+        single_ms = cuda_ms(lambda: topk.topk_search(q_dev, single, 20))
+        del single
+        bound = lambda dt: _search_bound_ms(INDEX_QUERIES, INDEX_ROWS,  # noqa: E731
+                                            corpus.shape[0] * EMB_DIM * (2 if cosine else 4), dt)
+        out[storage] = {"ms": ms, "single_card_ms": single_ms, "bound_ms": bound("float32")[0],
+                        "max_diff_vs_one_card": diff, "max_score_err": err}
+        out[storage]["methods"] = _certified_methods(
+            torch, lambda m, thr: topk.sharded_topk_search(q_dev, staged, 20, exact_above=thr,
+                                                           method=m),
+            scores, checked, sims, oracle_idx, planted, ms, bound,
+            f"sharded x4 {storage} 10^6", smi, phase="multigpu")
+        emit({"phase": "multigpu", "check": "sharded_search", "storage": storage,
+              "shards_on_one_card": 4, "smi": smi,
+              **{k: v for k, v in out[storage].items() if k != "methods"}})
+        del staged, q_dev, sims
+        torch.cuda.empty_cache()
+    del corpus
+
+    emb = _self_search_rows(rng)
+    e_dev = torch.from_numpy(emb).to(CARD)
+    scores, idx = (t.cpu().numpy() for t in topk.sharded_topk_cosine(e_dev, 20,
+                                                                      devices=devices))
+    ref_s, ref_i = (t.cpu().numpy() for t in topk.topk_cosine(e_dev, 20))
+    require(bool((idx == ref_i).all()), "ring: indices differ from one card")
+    diff = float(np.abs(scores - ref_s).max())
+    require(diff <= 1e-5, f"ring: scores off one card's by {diff}")
+    rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
+    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    err = _check_oracle(scores[rows], idx[rows], sims, oracle_idx, "ring")
+    staged = topk.stage_sharded_corpus(emb, devices)
+    ms = cuda_ms(lambda: topk.sharded_topk_cosine(staged, 20), window_ms=500)
+    single_ms = cuda_ms(lambda: topk.topk_cosine(e_dev, 20), window_ms=500)
+    bound = lambda dt: _search_bound_ms(SELF_SEARCH_ROWS, SELF_SEARCH_ROWS,  # noqa: E731
+                                        emb.nbytes, dt)
+    out["ring_100k"] = {"ms": ms, "single_card_ms": single_ms, "bound_ms": bound("float32")[0],
+                        "max_diff_vs_one_card": diff, "max_score_err": err}
+    out["ring_100k"]["methods"] = _certified_methods(
+        torch, lambda m, thr: topk.sharded_topk_cosine(staged, 20, exact_above=thr, method=m),
+        scores, rows, sims, oracle_idx, [(r, r + 1) for r in range(0, SELF_SEARCH_ROWS, 1000)],
+        ms, bound, "ring x4 10^5", smi, phase="multigpu")
+    emit({"phase": "multigpu", "check": "ring", "shards_on_one_card": 4, "smi": smi,
+          **{k: v for k, v in out["ring_100k"].items() if k != "methods"}})
+    return out
+
+
+def _dp_train_setup(torch, model_type: str):
+    """The two-rank check's global batch and per-step draws, from seeds."""
+    from video_fingerprint_tpu_torch.training.train_step import draw_extracts
+
+    B, T = (DP_TRAIN_B, TRAIN_T) if model_type == "attention" else (DP_TRAIN_B3D, CLIP_LENGTH)
+    batch = _train_batch(torch, np.random.default_rng(SEED + 7), B, T, "cpu")
+    if model_type != "attention":
+        batch = {k: v for k, v in batch.items() if not k.startswith("mask")}
+        return batch, [None]
+    gen = torch.Generator().manual_seed(SEED)
+    return batch, [draw_extracts(gen, B, T, 0.5) for _ in range(DP_STEPS)]
+
+
+def _dp_train_run(torch, model_type: str, shard):
+    """Train steps of the seeded full-width model (dropout off, f32, TF32
+    off) from step TRAIN_CHECK_STEP: shard(tree) gives this process's rows.
+    Returns per-step metrics (with each group's LR) and the params and BN
+    running statistics."""
+    batch, draws = _dp_train_setup(torch, model_type)
+    model, opt, step = _train_setup(torch, model_type, CARD, dropout=False)
+    batch = {k: v.to(CARD) for k, v in shard(batch).items()}
+    metrics = []
+    for i, d in enumerate(draws):
+        out = step(batch, shard(d) if d is not None else None, TRAIN_CHECK_STEP + i)
+        metrics.append({k: float(v) for k, v in out.items()})
+        metrics[-1]["lrs"] = {g["label"]: g["lr"] for g in opt.param_groups}
+    params = {k for k, _ in model.named_parameters()}
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if k in params or "running_" in k}
+    return metrics, state
+
+
+def _dp_train_rank(rank: int, world: int, port: int, out_path: str) -> None:
+    """One rank of the two-rank check (a spawned process): joins a gloo
+    group through the launcher's environment, both ranks on cuda:0, runs
+    the attention steps and the 3D step on its rows, saves its results."""
+    import torch
+
+    from video_fingerprint_tpu_torch.parallel.distributed import (
+        DataParallel,
+        maybe_initialize_distributed,
+    )
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    maybe_initialize_distributed(CARD, backend="gloo")
+    dp = DataParallel()
+    result = {"backend": torch.distributed.get_backend()}
+    try:  # which gloo collectives take CUDA tensors in this torch (diagnostic)
+        x = torch.ones(4, device=CARD)
+        torch.distributed.all_gather([torch.empty_like(x) for _ in range(world)], x)
+        result["gloo_cuda_all_gather"] = True
+    except RuntimeError as exc:
+        result["gloo_cuda_all_gather"] = repr(exc)[:200]
+    for model_type in ("attention", "3d"):
+        result[model_type] = _dp_train_run(torch, model_type, dp.shard_batch)
+    torch.distributed.destroy_process_group()
+    torch.save(result, out_path)
+
+
+def _dp_compare(torch, ref, got, model_type):
+    """Two-rank results against the one-process steps: STEP_TOL's loss and
+    grad norm gaps and BN running statistics; params within twice the sum
+    of their group's LRs over the steps (AdamW's early steps turn a
+    near-zero grad's rounding into a step of either sign)."""
+    from video_fingerprint_tpu_torch.training.optim import param_group_label
+
+    (ref_metrics, ref_state), (metrics, state) = ref, got
+    out = {"loss": [], "grad_norm": []}
+    for r, g in zip(ref_metrics, metrics):
+        for key in out:
+            gap = abs(g[key] - r[key]) / abs(r[key])
+            require(gap <= STEP_TOL[key], f"{model_type} two ranks: {key} gap {gap}")
+            out[key].append(gap)
+    lr_sum = {}
+    for m in ref_metrics:
+        for label, lr in m["lrs"].items():
+            lr_sum[label] = lr_sum.get(label, 0.0) + lr
+    worst, bn_worst = 0.0, 0.0
+    for key, r in ref_state.items():
+        diff = (state[key] - r).abs()
+        if "running_" in key:
+            bn_worst = max(bn_worst, float((diff / r.abs().clamp_min(1.0)).max()))
+        else:
+            label = "all" if "all" in lr_sum else param_group_label(key)
+            worst = max(worst, float(diff.max()) / lr_sum[label])
+    require(bn_worst <= STEP_TOL["bn"], f"{model_type} two ranks: BN gap {bn_worst}")
+    require(worst <= 2.001, f"{model_type} two ranks: params off by {worst} LR")
+    return {"rel_gap": out, "bn_rel_gap": bn_worst, "param_max_gap_in_lr": worst,
+            "loss": [m["loss"] for m in metrics]}
+
+
+def _dp_train(torch, workdir: Path, smi: str):
+    """Two gloo ranks on cuda:0 (spawned), each with half of a global batch
+    of 64 (attention, T = 64, ragged masks, the same extract draws, 2 steps)
+    and of 128 windows (3D, one step), against the same steps in this
+    process on the global batch."""
+    import multiprocessing
+
+    from video_fingerprint_tpu_torch.parallel.distributed import world_size
+
+    require(world_size() == 1, "this process must not be in a process group")
+    refs = {m: _dp_train_run(torch, m, lambda tree: tree) for m in ("attention", "3d")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    outs = [workdir / f"dp_rank{r}.pt" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_train_rank, args=(r, 2, port, str(outs[r])))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - t0
+    require(all(p.exitcode == 0 for p in procs),
+            f"two-rank train: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    result = {"backend": ranks[0]["backend"], "seconds": seconds,
+              "gloo_cuda_all_gather": ranks[0]["gloo_cuda_all_gather"]}
+    for model_type in ("attention", "3d"):
+        for key, v in ranks[0][model_type][1].items():
+            require(torch.equal(v, ranks[1][model_type][1][key]),
+                    f"{model_type}: the ranks' {key} differ")
+        result[model_type] = _dp_compare(torch, refs[model_type], ranks[0][model_type],
+                                         model_type)
+    emit({"phase": "multigpu", "check": "dp_train", "ranks_on_one_card": 2, "smi": smi,
+          **result})
+    return result
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_CLI_SHIM = """
+import json, sys, time
+import torch
+from video_fingerprint_tpu_torch.cli.train import main
+from video_fingerprint_tpu_torch.ops import attention as attn
+from video_fingerprint_tpu_torch.parallel import distributed
+from video_fingerprint_tpu_torch.training.trainer import Trainer
+
+stats = {"launches": {}, "seconds": {}, "steps": 0}
+
+def counted(name):
+    real = getattr(Trainer, name)
+    def run(self, *args, **kwargs):
+        before, t0, step0 = attn.launches, time.perf_counter(), self.global_step
+        out = real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        stats["launches"][name] = stats["launches"].get(name, 0) + attn.launches - before
+        stats["seconds"][name] = stats["seconds"].get(name, 0.0) + time.perf_counter() - t0
+        if name == "train_epoch":
+            stats["steps"] += self.global_step - step0
+        return out
+    return run
+
+for name in ("train_epoch", "validate"):
+    setattr(Trainer, name, counted(name))
+rc = main(sys.argv[2:])
+stats.update(rc=rc, world=distributed.world_size(),
+             backend=torch.distributed.get_backend()
+             if torch.distributed.is_initialized() else None)
+with open(sys.argv[1], "w") as f:
+    json.dump(stats, f)
+sys.exit(rc)
+"""
+
+
+def _nccl_cli(torch, workdir: Path, smi: str):
+    """The train CLI for one epoch of phase 8's 16-video corpus under
+    `python -m torch.distributed.run --standalone --nproc_per_node 1` (NCCL,
+    world 1) and without the launcher, each in its own process through a
+    shim that counts K1's launches and times the train epoch: the artifacts
+    (rank 0's), K1 in validation only, steps/s of both."""
+    from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
+
+    videos = workdir / "train_videos"
+    if not videos.exists():
+        make_corpus(videos, num_unique=14, num_frames=40, duplicates=2)
+    shim = workdir / "train_cli_shim.py"
+    shim.write_text(_CLI_SHIM)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    runs = {}
+    for mode in ("nccl_world1", "plain"):
+        stats = workdir / f"{mode}.json"
+        args = [str(shim), str(stats), "--data_dir", str(videos), "--batch_size", "4",
+                "--num_workers", "4", "--max_frames", "64", "--epochs", "1",
+                "--run_name", mode]
+        launcher = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+                    if mode == "nccl_world1" else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *launcher, *args], cwd=workdir, env=env,
+                              capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"train CLI ({mode}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        s = json.loads(stats.read_text())
+        run = workdir / "runs" / mode
+        for name in ("config.json", "training_info.txt", "training_log.txt",
+                     "training_summary.txt", "checkpoints/last.ckpt", "checkpoints/best.ckpt"):
+            require((run / name).exists(), f"train CLI ({mode}) left no {name}")
+        require(s["launches"].get("validate", 0) > 0, f"{mode}: validation did not run K1")
+        require(s["launches"].get("train_epoch", 0) == 0, f"{mode}: a train step ran K1")
+        runs[mode] = {"backend": s["backend"], "world": s["world"], "steps": s["steps"],
+                      "train_epoch_s": s["seconds"]["train_epoch"],
+                      "steps_per_s": s["steps"] / s["seconds"]["train_epoch"],
+                      "attention_launches": s["launches"], "process_s": time.perf_counter() - t0}
+    require(runs["nccl_world1"]["backend"] == "nccl" and runs["nccl_world1"]["world"] == 1,
+            f"the launched CLI did not join an NCCL group: {runs['nccl_world1']}")
+    emit({"phase": "multigpu", "check": "nccl_cli", "smi": smi, **runs})
+    return runs
+
+
+def phase_multigpu(torch, workdir: Path, smi: str):
+    """Every multi-device path on the one card: the data-parallel scan over 2
+    and 4 shards and the 3D scan over 2, the sharded and ring searches over
+    4, data-parallel training in 2 gloo ranks, the train CLI under the
+    launcher on NCCL. Times are k shards or ranks on one card."""
+    t0 = time.perf_counter()
+    scan = _dp_scan(torch, workdir, smi)
+    search = _dp_search(torch, smi)
+    train = _dp_train(torch, workdir, smi)
+    cli = _nccl_cli(torch, workdir, smi)
+    emit({"phase": "multigpu", "smi": smi, "scan": scan, "train": train, "cli": cli,
+          "search_ms": {k: {"ms": v["ms"], "single_card_ms": v["single_card_ms"]}
+                        for k, v in search.items()},
+          "seconds": time.perf_counter() - t0})
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native")
+          "native", "multigpu")
 
 
 def _settle(torch) -> None:
@@ -1953,6 +2415,8 @@ def main(argv=None) -> int:
                 phase_augment(torch, work, smi)
             elif name == "native":
                 phase_native(torch, work, model_path, model3d_path, smi)
+            elif name == "multigpu":
+                phase_multigpu(torch, work, smi)
     emit({"phase": "done", "phases": run, "seconds": time.perf_counter() - t_start})
     if run != list(PHASES):
         return 0

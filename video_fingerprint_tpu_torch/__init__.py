@@ -10,6 +10,8 @@ reference it is tested against. Layout mirrors the JAX package:
   - training/    checkpoint loading (.ckpt msgpack reader, .pth)
   - inference/   scanner, duplicate grouping, fingerprint index and scan
                  cache (.npz, the JAX package's format), JSON report
+  - parallel/    device lists and torch.distributed: the data-parallel scan,
+                 the corpus-sharded search, data-parallel training
   - utils/       reference state_dict <-> flax-layout key tables, device
   - cli/         `python -m video_fingerprint_tpu_torch.cli.scan`
   - tools/       the conv-block probe

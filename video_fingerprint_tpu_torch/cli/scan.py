@@ -1,12 +1,15 @@
 """Scanner CLI: `python -m video_fingerprint_tpu_torch.cli.scan`.
 
-The flag surface of video_fingerprint_tpu/cli/scan.py for a scan on one
-card: either model family (from the checkpoint's config), the persistent
-`--index` (incremental re-scans), `--against` (query-vs-corpus search), and
-the native host paths `--native_decode` and `--native_preprocess` (cv2 when
-their library cannot be built, as in the JAX package). `--device` is cuda
-(default) or cpu; cuda without a card is an error, not a fallback. Not
-ported: `--data_parallel` (multi-GPU).
+The flag surface of video_fingerprint_tpu/cli/scan.py: either model family
+(from the checkpoint's config), the persistent `--index` (incremental
+re-scans), `--against` (query-vs-corpus search), the native host paths
+`--native_decode` and `--native_preprocess` (cv2 when their library cannot
+be built, as in the JAX package), and `--data_parallel` (the batched
+extraction split over every card of the machine, one process). With more
+than one card, the top-k duplicate search and a large `--against` corpus
+are row-sharded over the cards whatever the flag says, as in the JAX
+package. `--device` is cuda (default) or cpu; cuda without a card is an
+error, not a fallback.
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "into conv weights; lossless, on by default)")
     parser.add_argument("--warmup", action="store_true",
                         help="Run each bucket's forward once before scanning")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="Shard batched extraction over every device of "
+                             "the platform (one model replica per card; "
+                             "single-card boxes fall back to one device)")
     parser.add_argument("--index", type=str,
                         help="Persistent scan index (.npz): reuse fingerprints "
                              "for unchanged files (size + content hash) and "
@@ -111,7 +118,7 @@ def main(argv=None) -> int:
     scanner = FingerprintScanner(
         args.model, device=args.device, batch_size=args.batch,
         native_preprocess=args.native_preprocess, native_decode=args.native_decode,
-        bf16=args.bf16, optimize=not args.no_optimize,
+        bf16=args.bf16, optimize=not args.no_optimize, data_parallel=args.data_parallel,
     )
 
     video_dir = Path(args.scan)

@@ -1,7 +1,16 @@
 """Train CLI: the JAX package's flag surface (video_fingerprint_tpu/cli/train.py,
-reference train.py:722-770) on one card, or on the CPU with --device cpu.
+reference train.py:722-770) on one card, on the CPU with --device cpu, or
+data-parallel over several ranks started by torch.distributed.run:
 
     python -m video_fingerprint_tpu_torch.cli.train --data_dir videos/ --epochs 50
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m video_fingerprint_tpu_torch.cli.train --data_dir videos/ --batch_size 32
+
+Under the launcher each rank joins the group first (nccl on cuda, gloo on
+cpu; parallel/distributed.py), loads `batch_size // world` rows per step
+from its shard of the data, and rank 0 names the run dir and alone writes
+into it. --batch_size is the global batch and must divide by the world
+size (after the 3D model's doubling).
 
 Derived-config rules as there: the 3D model doubles the batch and triples
 the LR (reference train.py:779-781), the attention val loader takes twice
@@ -107,17 +116,35 @@ def main(argv=None) -> int:
     from video_fingerprint_tpu_torch.training.trainer import Trainer, setup_run_directory
     from video_fingerprint_tpu_torch.utils.device import resolve_device
 
-    resolve_device(args.device)  # no card for --device cuda: raise before any work
+    from video_fingerprint_tpu_torch.parallel.distributed import (
+        broadcast_string,
+        maybe_initialize_distributed,
+    )
 
-    if args.run_name:
-        run_dir = Path("./runs") / args.run_name
-        run_dir.mkdir(parents=True, exist_ok=True)
-    else:
-        run_dir = setup_run_directory(prefix="3d_" if args.model == "3d" else "")
+    resolve_device(args.device)  # no card for --device cuda: raise before any work
+    rank, world = maybe_initialize_distributed(args.device)
 
     # derived-config rules from the reference: 3D doubles batch, triples LR
     batch_size = args.batch_size if args.model == "attention" else args.batch_size * 2
     lr = args.lr if args.model == "attention" else args.lr * 3
+    if world > 1:
+        print(f"Data parallel: rank {rank}/{world}")
+        if batch_size % world:
+            print(f"Error: batch_size {batch_size} must be divisible by the world "
+                  f"size ({world})")
+            return 1
+
+    # single writer: rank 0 creates the run dir and broadcasts a timestamped
+    # name; the other ranks never write into it
+    if args.run_name:
+        run_dir = Path("./runs") / args.run_name
+        if rank == 0:
+            run_dir.mkdir(parents=True, exist_ok=True)
+    elif rank == 0:
+        run_dir = setup_run_directory(prefix="3d_" if args.model == "3d" else "")
+        broadcast_string(run_dir.name)
+    else:
+        run_dir = Path("./runs") / broadcast_string("")
 
     config = Config(
         batch_size=batch_size,
@@ -166,13 +193,14 @@ def main(argv=None) -> int:
         seed=args.seed,
         decode_backend="native" if args.native_decode else "cv2",
         augment_mode="device" if args.device_augment else "host",
+        shard_index=rank,
+        shard_count=world,
     )
-    train_loader = create_dataloader(args.data_dir, batch_size=config["batch_size"],
+    per_rank = config["batch_size"] // world
+    train_loader = create_dataloader(args.data_dir, batch_size=per_rank,
                                      mode="train", **loader_args)
     val_loader = create_dataloader(
-        args.data_dir,
-        batch_size=config["batch_size"] * 2 if args.model == "attention"
-        else config["batch_size"],
+        args.data_dir, batch_size=per_rank * 2 if args.model == "attention" else per_rank,
         mode="val", **loader_args)
 
     if len(train_loader) == 0:

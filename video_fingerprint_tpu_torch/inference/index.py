@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,13 +60,15 @@ def bf16_values(bits: np.ndarray) -> np.ndarray:
 
 class FingerprintIndex:
     def __init__(self, dim: int = 256, device: Optional[str | torch.device] = None,
-                 model_identity: Optional[dict] = None, storage: str = "f32"):
+                 model_identity: Optional[dict] = None, storage: str = "f32",
+                 devices: Optional[Sequence] = None):
         """device: where searches run, resolved at the first search ("cuda"
         when None; it raises there without a card), so that load and save
         never touch CUDA. storage="bf16" keeps the corpus in bfloat16 on the
         device and on disk (half the bytes); searches then score true
         cosines of the stored vectors (ops/topk.py). The host copy stays
-        float32."""
+        float32. devices: the device list a large corpus is row-sharded
+        over (every device of `device`'s platform when None; see search)."""
         if storage not in ("f32", "bf16"):
             raise ValueError(f"storage must be 'f32' or 'bf16', got {storage!r}")
         self.dim = dim
@@ -75,7 +77,9 @@ class FingerprintIndex:
         self._device = device
         self._chunks: List[np.ndarray] = []
         self._meta: List[dict] = []
+        self._devices = devices
         self._staged: Optional[torch.Tensor] = None
+        self._staged_sharded = None
 
     def __len__(self) -> int:
         return sum(c.shape[0] for c in self._chunks)
@@ -98,7 +102,7 @@ class FingerprintIndex:
                              f"{embeddings.shape[0]} embeddings")
         self._chunks.append(embeddings)
         self._meta.extend(meta if meta is not None else [{}] * embeddings.shape[0])
-        self._staged = None
+        self._staged = self._staged_sharded = None
 
     def add_fingerprints(self, fingerprints: Dict[str, dict]) -> None:
         """Append scanner output ({path: {embedding, name, size, ...}}).
@@ -124,7 +128,7 @@ class FingerprintIndex:
             self._chunks = [flat]
         if new_embs:
             self.add(np.stack(new_embs), new_meta)
-        self._staged = None
+        self._staged = self._staged_sharded = None
 
     def fingerprints(self) -> Dict[str, dict]:
         """{path: {embedding, ...meta}}: the scanner's fingerprint shape,
@@ -163,9 +167,31 @@ class FingerprintIndex:
         """Exact inner-product k-NN: (scores (M, k), indices (M, k)), with k
         capped at the corpus size (FAISS pads with -1; this caps instead).
         `exact_above` is passed to the search, which is complete above any
-        threshold (ops/topk.py)."""
-        from video_fingerprint_tpu_torch.ops.topk import topk_search
+        threshold (ops/topk.py).
 
+        With more than one device and at least 8 rows per device (the JAX
+        index's condition) the search runs corpus-sharded
+        (ops/topk.py::sharded_topk_search, N/d rows per device); its
+        row-sharded corpus is staged once and kept until the next change,
+        and staging it drops the single-device copy."""
+        from video_fingerprint_tpu_torch.ops.topk import (
+            sharded_topk_search,
+            stage_sharded_corpus,
+            topk_search,
+        )
+        from video_fingerprint_tpu_torch.parallel.mesh import as_devices
+
+        n = len(self)
+        devices = as_devices(self._devices, self.device)
+        if len(devices) > 1 and n >= 8 * len(devices):
+            if self._staged_sharded is None:
+                dtype = torch.bfloat16 if self.storage == "bf16" else torch.float32
+                self._staged_sharded = stage_sharded_corpus(self._flat_embeddings(),
+                                                            devices, dtype)
+                self._staged = None
+            scores, idx = sharded_topk_search(queries, self._staged_sharded, min(k, n),
+                                              exact_above=exact_above)
+            return scores.cpu().numpy(), idx.cpu().numpy()
         corpus = self._corpus()
         q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(self.device)
         scores, idx = topk_search(q, corpus, min(k, len(self)), exact_above=exact_above)

@@ -38,6 +38,7 @@ package's f32 results.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import queue
 import threading
@@ -54,7 +55,12 @@ from video_fingerprint_tpu_torch.data import decode, preprocess
 from video_fingerprint_tpu_torch.inference.index import identity_mismatch
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
-from video_fingerprint_tpu_torch.ops.topk import topk_cosine
+from video_fingerprint_tpu_torch.ops.topk import sharded_topk_cosine, topk_cosine
+from video_fingerprint_tpu_torch.parallel.mesh import (
+    as_devices,
+    pad_to_multiple,
+    platform_devices,
+)
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
 from video_fingerprint_tpu_torch.utils import native
 from video_fingerprint_tpu_torch.utils import native_decode as native_decode_lib
@@ -78,7 +84,7 @@ class _Readback:
             self._host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
             self._host.copy_(result, non_blocking=True)
             self._done = torch.cuda.Event()
-            self._done.record()
+            self._done.record(torch.cuda.current_stream(result.device))
         else:
             self._host = result
 
@@ -86,6 +92,17 @@ class _Readback:
         if self._done is not None:
             self._done.synchronize()
         return self._host.numpy()
+
+
+class _Gathered:
+    """The readbacks of one batch's shards (one without data parallel),
+    joined in shard order."""
+
+    def __init__(self, parts: List[_Readback]):
+        self._parts = parts
+
+    def wait(self) -> np.ndarray:
+        return np.concatenate([part.wait() for part in self._parts])
 
 
 class _AsyncPipeline:
@@ -163,7 +180,7 @@ class _Staging:
         frames_dev = frames.to(self.device, non_blocking=True)
         mask_dev = mask.to(self.device, non_blocking=True)
         if copied is not None:
-            copied.record()
+            copied.record(torch.cuda.current_stream(self.device))
         return frames_dev, mask_dev
 
 
@@ -179,6 +196,19 @@ class FingerprintScanner:
     select the native host paths (utils/native_decode.py, utils/native.py);
     where a library cannot be built the scanner says so, as the JAX
     package's does, and decodes with cv2.
+
+    data_parallel (JAX scanner.py:172-213): True shards the batched
+    extraction over every device of `device`'s platform, or over the given
+    device list (which may repeat a device). One process holds a replica of
+    the folded model on each device; batch_size is padded to a multiple of
+    the device count and each batch is split on video (window) boundaries,
+    each device staging its part in its own buffers; the replicas' forwards
+    are launched in turn, so they overlap on separate cards, and their
+    embeddings are joined on the host. With one device on the platform it
+    runs there and says so. The single-video and sequential paths stay on
+    `device`. `devices` (the given list, else the platform's) is also what
+    the top-k duplicate search shards over once it has at least 8 videos
+    per device (JAX scanner.py:775-780).
     """
 
     def __init__(
@@ -191,9 +221,13 @@ class FingerprintScanner:
         native_decode: bool = False,
         bf16: bool = False,
         optimize: bool = True,
+        data_parallel: bool | Sequence = False,
     ):
-        self.batch_size = batch_size
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.devices = (platform_devices(self.device) if isinstance(data_parallel, bool)
+                        else as_devices(data_parallel))
         self.native_preprocess = False
         if native_preprocess:
             self.native_preprocess = native.available()
@@ -258,9 +292,22 @@ class FingerprintScanner:
         # producer without native decode); uint8 from cv2 and native decode
         self.stage_dtype = (np.float32 if (self.native_preprocess and not self.native_decode
                                            and not self.is_3d) else np.uint8)
-        self._staging = _Staging(self.device, batch_size, self.frame_size,
-                                 torch.float32 if self.stage_dtype == np.float32
-                                 else torch.uint8)
+        shard_devices = self.devices if data_parallel else [self.device]
+        self.batch_size = pad_to_multiple(batch_size, len(shard_devices))
+        # a replica of the model on each other device; the shards' staging
+        # buffers, in the order the batch rows are split
+        self._replicas = {dev: copy.deepcopy(self.model).to(dev)
+                          for dev in set(shard_devices) - {self.device}}
+        stage_dtype = torch.float32 if self.stage_dtype == np.float32 else torch.uint8
+        per_shard = self.batch_size // len(shard_devices)
+        self._shards = [_Staging(dev, per_shard, self.frame_size, stage_dtype)
+                        for dev in shard_devices]
+        if data_parallel and len(shard_devices) > 1:
+            print(f"Data-parallel extraction over {len(shard_devices)} devices "
+                  f"(batch {self.batch_size})")
+        elif data_parallel:
+            print(f"Data-parallel extraction: one device on the platform, running on "
+                  f"{shard_devices[0]}")
         print(f"Model loaded - Type: {self.model_type}, Device: {self.device}")
 
     @contextmanager
@@ -274,7 +321,7 @@ class FingerprintScanner:
         when num_frames is None, else the bucket of num_frames (attention),
         or clip_length plus the stride-multiple bucket of a shorter
         num_frames (3D)."""
-        B, fs = self.batch_size, self.frame_size
+        fs = self.frame_size
         if self.is_3d:
             lengths = {self.clip_length}
             if num_frames is not None and num_frames < self.clip_length:
@@ -285,21 +332,26 @@ class FingerprintScanner:
             lengths = {preprocess.bucket_for_length(min(num_frames, self.max_frames),
                                                     self.buckets)}
         for length in sorted(lengths):
-            frames = torch.zeros((B, length, fs, fs, 3), dtype=self._staging.dtype,
-                                 device=self.device)
-            mask = torch.zeros((B, length), dtype=torch.bool, device=self.device)
-            mask[:, 0] = True
-            with self._inference():
-                self._forward_batch(frames, mask)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for staging in self._shards:
+                B = staging.batch_size
+                frames = torch.zeros((B, length, fs, fs, 3), dtype=staging.dtype,
+                                     device=staging.device)
+                mask = torch.zeros((B, length), dtype=torch.bool, device=staging.device)
+                mask[:, 0] = True
+                with self._inference():
+                    self._forward_batch(frames, mask)
+        for staging in self._shards:
+            if staging.device.type == "cuda":
+                torch.cuda.synchronize(staging.device)
 
     def _forward_batch(self, frames: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, 3) staged batch and its (B, T) mask -> (B, D)."""
+        """(B, T, H, W, 3) staged batch and its (B, T) mask -> (B, D), by the
+        model (or replica) on the batch's device."""
+        model = self._replicas.get(frames.device, self.model)
         if self.is_3d:  # stride-multiple buckets: the zero padding is the model's own
-            return self.model(frames)
-        return self.model.forward_flat(frames.view((-1,) + tuple(frames.shape[2:])),
-                                       frames.shape[0], mask)
+            return model(frames)
+        return model.forward_flat(frames.view((-1,) + tuple(frames.shape[2:])),
+                                  frames.shape[0], mask)
 
     # ------------------------------------------------------------------
     # Single-video extraction (reference fingerprint.py:216-320)
@@ -586,7 +638,9 @@ class FingerprintScanner:
 
         Clips are grouped by length bucket (the scan buckets, or the 3D
         model's stride multiples); a bucket's batch is forwarded when it
-        holds batch_size clips, and every partial batch at the end."""
+        holds batch_size clips, and every partial batch at the end. Under
+        data_parallel each shard forwards its consecutive batch_size / d
+        rows of the batch (a partial batch's padding rows included)."""
         pending: Dict[int, list] = {}
         out: Dict[Hashable, np.ndarray] = {}
         shape = (self.frame_size, self.frame_size, 3)
@@ -600,10 +654,14 @@ class FingerprintScanner:
 
         def flush(bucket: int):
             items = pending.pop(bucket)
-            frames, mask = self._staging.stage(bucket, [clip for _, clip in items])
+            clips = [clip for _, clip in items]
+            readbacks = []
             with self._inference():
-                embs = self._forward_batch(frames, mask)
-                pipeline.dispatch(items, _Readback(embs))
+                for staging in self._shards:
+                    lo = len(readbacks) * staging.batch_size
+                    frames, mask = staging.stage(bucket, clips[lo:lo + staging.batch_size])
+                    readbacks.append(_Readback(self._forward_batch(frames, mask)))
+            pipeline.dispatch(items, _Gathered(readbacks))
 
         for key, clip in clips:
             if clip.dtype != self.stage_dtype or clip.shape[1:] != shape:
@@ -691,9 +749,13 @@ class FingerprintScanner:
     def _find_duplicates_topk(self, embeddings, paths, fingerprints, threshold):
         """k-NN candidates from exact top-k + the greedy grouping the
         reference applies to its FAISS results (fingerprint.py:515-548)."""
-        n = len(embeddings)
-        sims, idx = topk_cosine(torch.from_numpy(embeddings).to(self.device), min(20, n),
-                                exact_above=threshold)
+        n, d = len(embeddings), len(self.devices)
+        if d > 1 and n >= 8 * d:  # corpus-sharded ring (JAX scanner.py:775-780)
+            sims, idx = sharded_topk_cosine(embeddings, min(20, n), devices=self.devices,
+                                            exact_above=threshold)
+        else:
+            sims, idx = topk_cosine(torch.from_numpy(embeddings).to(self.device), min(20, n),
+                                    exact_above=threshold)
         sims, idx = sims.cpu().numpy(), idx.cpu().numpy()
 
         processed = set()

@@ -13,7 +13,10 @@ package computes it outside its Pallas kernel (models/layers.py:320-332
 there). Dropout sits where the JAX package has it (nn.Dropout modules,
 which hold no parameters, so the state_dict keys do not change); BatchNorm
 in train mode is torch's, whose momentum 0.1 and unbiased running variance
-are what the JAX `TorchBatchNorm` does.
+are what the JAX `TorchBatchNorm` does. When the process is one rank of
+several (parallel/distributed.py), train-mode BatchNorm takes the
+statistics of the global batch instead, as JAX does under GSPMD
+(`_global_batch_norm`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_fingerprint_tpu_torch.ops.attention import MASKED_BIAS, multihead_attention
+from video_fingerprint_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 PE_MAX_LEN = 10000  # reference model.py:80 registers a 10000-row table
 
@@ -65,6 +69,56 @@ class PositionalEncoding(nn.Module):
         return x + pe.to(x.dtype)
 
 
+def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of every rank (JAX
+    models/layers.py:111-124): per channel, sum x, sum x^2 and the count in
+    f32, summed over the ranks by one differentiable all_reduce; mean and
+    E[x^2] from them, var = max(E[x^2] - mean^2, 0), and the running
+    variance updated unbiased with the global count."""
+    if bn.num_batches_tracked is not None:
+        bn.num_batches_tracked.add_(1)
+    m = bn.momentum if bn.momentum is not None else 1.0 / float(bn.num_batches_tracked)
+    C = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    xf = x.float()
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                     xf.new_full((1,), x.numel() / C)]))
+    n = sums[2 * C]
+    mean = sums[:C] / n
+    var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
+    if m:  # momentum 0 (a recomputed forward) leaves the statistics as they are
+        with torch.no_grad():
+            unbiased = var * n / torch.clamp(n - 1, min=1.0)
+            bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1.0 - m) * bn.running_var + m * unbiased)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    y = (xf - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
+    return (y * bn.weight.view(shape) + bn.bias.view(shape)).to(x.dtype)
+
+
+class _GlobalStats:
+    """A torch BatchNorm that normalizes by the global batch's statistics
+    in train mode under more than one rank; otherwise torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and world_size() > 1:
+            self._check_input_dim(x)
+            return _global_batch_norm(self, x)
+        return super().forward(x)
+
+
+class BatchNorm1d(_GlobalStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_GlobalStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_GlobalStats, nn.BatchNorm3d):
+    pass
+
+
 def _bn_or_identity(bn: nn.Module, fused: bool) -> nn.Module:
     return nn.Identity() if fused else bn
 
@@ -83,7 +137,7 @@ class SpatialEncoder(nn.Module):
         for ch, k, p in [(32, 5, 2), (64, 3, 1), (128, 3, 1), (256, 3, 1)]:
             layers += [
                 nn.Conv2d(in_ch, ch, k, stride=2, padding=p),
-                _bn_or_identity(nn.BatchNorm2d(ch), fused),
+                _bn_or_identity(BatchNorm2d(ch), fused),
                 nn.ReLU(),
             ]
             in_ch = ch
@@ -175,7 +229,7 @@ class TemporalConvBlock(nn.Module):
         self.convs = nn.ModuleList(
             nn.Sequential(
                 nn.Conv1d(dim, branch, k, padding=k // 2, groups=branch),
-                _bn_or_identity(nn.BatchNorm1d(branch), fused),
+                _bn_or_identity(BatchNorm1d(branch), fused),
                 nn.ReLU(),
             )
             for k in kernel_sizes
@@ -196,7 +250,7 @@ class Conv3DBlock(nn.Module):
                  fused: bool = False):
         super().__init__()
         self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride, padding=padding)
-        self.bn = _bn_or_identity(nn.BatchNorm3d(out_ch), fused)
+        self.bn = _bn_or_identity(BatchNorm3d(out_ch), fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))

@@ -46,6 +46,11 @@ scores are true cosines of the stored vectors and byte-identical rows score
 
 `repaired_rows` counts the rows the certified methods sent to the exact
 repair since import.
+
+`sharded_topk_search` and the ring `sharded_topk_cosine` run the same
+searches over a corpus row-sharded across a device list
+(`stage_sharded_corpus`; JAX ops/topk.py:875-1164), each shard's work being
+the single-device search on its device.
 """
 
 from __future__ import annotations
@@ -320,6 +325,36 @@ def _rescore(p: _Problem, scores: torch.Tensor, idx: torch.Tensor, qlo: int = 0
     return _order(hi, idx, idx.shape[1])
 
 
+def _resolve_method(k: int, n: int, method: str, exact_above: Optional[float],
+                    recall_target: Optional[float]) -> Tuple[str, float]:
+    """The method to run ("auto" is "exact") and the recall target, after
+    the checks every search makes."""
+    if not 0 < k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    if method not in METHODS:
+        raise ValueError(f"unknown top-k method {method!r}")
+    if method == "auto":
+        method = "exact"
+    if method == "certified-bf16" and exact_above is None:
+        raise ValueError(
+            "method='certified-bf16' needs exact_above: the widened "
+            "certificate is threshold-only (strict exactness cannot be "
+            "certified from single-pass bf16 scores)")
+    if recall_target is None:
+        recall_target = 0.99 if exact_above is None else 0.95
+    return method, recall_target
+
+
+def _first_stage(p: _Problem, k: int, method: str, recall: float,
+                 thr: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(scores, indices, ok) of one problem: exact (every row ok), or the
+    certified first stage whose failed rows the caller repairs."""
+    if method == "exact":
+        s, i = _exact(p, k)
+        return s, i, torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    return _certified(p, k, recall, thr, method == "certified-bf16")
+
+
 def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 exact_above: Optional[float] = None, method: str = "auto",
                 recall_target: Optional[float] = None
@@ -330,26 +365,11 @@ def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     recall_target: the approximate stage's target, None for 0.99 (strict)
     or 0.95 (with exact_above)."""
     global repaired_rows
-    n = corpus.shape[0]
-    if not 0 < k <= n:
-        raise ValueError(f"k must be in [1, {n}], got {k}")
-    if method not in METHODS:
-        raise ValueError(f"unknown top-k method {method!r}")
-    if method == "auto":
-        method = "exact"
-    lowp = method == "certified-bf16"
-    if lowp and exact_above is None:
-        raise ValueError(
-            "method='certified-bf16' needs exact_above: the widened "
-            "certificate is threshold-only (strict exactness cannot be "
-            "certified from single-pass bf16 scores)")
-    if recall_target is None:
-        recall_target = 0.99 if exact_above is None else 0.95
+    method, recall_target = _resolve_method(k, corpus.shape[0], method, exact_above,
+                                            recall_target)
     p = _Problem(queries, corpus)
     with full_fp32():
-        if method == "exact":
-            return _exact(p, k)
-        scores, idx, ok = _certified(p, k, recall_target, exact_above, lowp)
+        scores, idx, ok = _first_stage(p, k, method, recall_target, exact_above)
         bad = (~ok).nonzero()[:, 0]
         if len(bad):
             repaired_rows += len(bad)
@@ -362,3 +382,171 @@ def topk_cosine(embeddings: torch.Tensor, k: int, exact_above: Optional[float] =
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-search: (N, D) embeddings -> (scores (N, k), indices (N, k))."""
     return topk_search(embeddings, embeddings, k, exact_above, method, recall_target)
+
+
+# ------------------------------------------------------------------ sharded
+#
+# The corpus-sharded searches of JAX ops/topk.py:875-1164, in one process
+# over a device list (parallel/mesh.py): shard i of the row-sharded corpus
+# lives on devices[i], and each shard's local work is the single-device
+# search above on that device. Results come back on devices[0], ordered by
+# (score desc, index asc) as the single-device search orders them.
+
+
+class ShardedCorpus:
+    """An (N, D) corpus padded on the host to d * rows rows and row-sharded
+    over d devices: `shards[i]` holds rows [i*rows, (i+1)*rows) on
+    devices[i]. The padded rows are zero and never scored (`valid`)."""
+
+    def __init__(self, shards, n: int):
+        self.shards = list(shards)
+        self.n = n
+        self.rows = self.shards[0].shape[0]
+        self.devices = [s.device for s in self.shards]
+
+    def valid(self, i: int) -> torch.Tensor:
+        """Shard i's corpus rows, without its padding."""
+        return self.shards[i][:max(0, min(self.rows, self.n - i * self.rows))]
+
+
+def stage_sharded_corpus(corpus, devices, dtype: Optional[torch.dtype] = None
+                         ) -> ShardedCorpus:
+    """Pad the corpus on the host and copy one row shard to each device
+    (JAX stage_sharded_corpus): the full matrix never lands on one device,
+    so each device holds N/d rows. Pass the result to `sharded_topk_search`
+    to reuse it across searches. dtype=torch.bfloat16 rounds on the host
+    first (half the copy and the memory), as `stage_corpus` does; None
+    keeps a bfloat16 tensor's storage and stores anything else in f32."""
+    from video_fingerprint_tpu_torch.parallel.mesh import as_devices
+
+    devices = as_devices(devices)
+    if dtype is None:
+        dtype = (torch.bfloat16 if getattr(corpus, "dtype", None) == torch.bfloat16
+                 else torch.float32)
+    if isinstance(corpus, torch.Tensor):
+        host = corpus.detach().to("cpu", torch.float32)
+    else:
+        host = torch.from_numpy(np.ascontiguousarray(corpus, dtype=np.float32))
+    n, d = host.shape[0], len(devices)
+    rows = max(1, -(-n // d))
+    host = torch.nn.functional.pad(host, (0, 0, 0, d * rows - n)).to(dtype)
+    return ShardedCorpus((host[i * rows:(i + 1) * rows].to(dev)
+                          for i, dev in enumerate(devices)), n)
+
+
+def _merge_on(device, cand_s, cand_i, k):
+    """Merge candidate lists on `device`, keeping the first k."""
+    cand_s = [s.to(device) for s in cand_s]
+    cand_i = [i.to(device) for i in cand_i]
+    return _order(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1), k)
+
+
+def sharded_topk_search(queries, corpus, k: int, devices=None,
+                        exact_above: Optional[float] = None, method: str = "auto",
+                        recall_target: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Corpus-sharded query-vs-corpus k-NN (JAX sharded_topk_search): the
+    corpus is row-sharded over `devices` (all of the card's platform when
+    None), the (M, D) queries go to every shard. Each shard finds its
+    min(k, rows) best with global column ids (its offset added), and one
+    merge on devices[0] keeps the k best. Returns (scores (M, k), indices
+    (M, k)) on devices[0], equal to `topk_search(method="exact")`.
+
+    `corpus` is an (N, D) array or tensor, staged by `stage_sharded_corpus`,
+    or a `ShardedCorpus` from it (then `devices` is its own). The methods
+    are `topk_search`'s; a certified row is kept only if every shard
+    certified it, and the other rows are repaired by an exact pass over the
+    same staged shards."""
+    global repaired_rows
+    if not isinstance(corpus, ShardedCorpus):
+        corpus = stage_sharded_corpus(corpus, devices)
+    if not isinstance(queries, torch.Tensor):
+        queries = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32))
+    method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
+    home = corpus.devices[0]
+    if queries.shape[0] == 0:
+        return (torch.zeros((0, k), dtype=torch.float32, device=home),
+                torch.zeros((0, k), dtype=torch.int64, device=home))
+    problems = []
+    cand_s, cand_i, oks = [], [], []
+    with full_fp32():
+        # every shard's work is launched before any result is merged, so
+        # shards on different cards overlap
+        for i, dev in enumerate(corpus.devices):
+            shard = corpus.valid(i)
+            if not len(shard):
+                continue
+            p = _Problem(queries.to(dev), shard)
+            problems.append((p, i * corpus.rows))
+            s, j, ok = _first_stage(p, min(k, len(shard)), method, recall_target,
+                                    exact_above)
+            cand_s.append(s)
+            cand_i.append(j + i * corpus.rows)
+            oks.append(ok.to(home))
+        scores, idx = _merge_on(home, cand_s, cand_i, k)
+        bad = (~torch.stack(oks).all(dim=0)).nonzero()[:, 0]
+        if len(bad):
+            repaired_rows += len(bad)
+            fix_s, fix_i = [], []
+            for p, offset in problems:
+                s, j = _exact(p.rows(bad.to(p.queries.device)), min(k, p.corpus.shape[0]))
+                fix_s.append(s)
+                fix_i.append(j + offset)
+            scores[bad], idx[bad] = _merge_on(home, fix_s, fix_i, k)
+    return scores, idx
+
+
+def sharded_topk_cosine(embeddings, k: int, devices=None,
+                        exact_above: Optional[float] = None, method: str = "auto",
+                        recall_target: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ring-sharded self-search (JAX sharded_topk_cosine): the (N, D)
+    embeddings are row-sharded over `devices`, each shard's rows are both
+    its queries and the corpus tile it sends round the ring. At step 0 each
+    shard searches its own tile, which seeds its running top-k; at step t
+    every tile moves to the next device in the list (a device-to-device
+    copy) and each shard merges its search of the tile it now holds, the
+    one that started t places before it. After d steps every shard has met
+    every tile. Returns (scores (N, k), indices (N, k)) on devices[0].
+
+    Certified methods: a row is certified only if every tile certified it;
+    the others are repaired by an exact `sharded_topk_search` over the same
+    staged shards."""
+    global repaired_rows
+    corpus = embeddings if isinstance(embeddings, ShardedCorpus) else \
+        stage_sharded_corpus(embeddings, devices)
+    method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
+    d, rows, home = len(corpus.shards), corpus.rows, corpus.devices[0]
+    queries = [corpus.valid(i) for i in range(d)]
+    tiles = [(i, corpus.valid(i)) for i in range(d)]  # (origin shard, rows)
+    carry = [None] * d
+    with full_fp32():
+        for step in range(d):
+            if step:  # rotate: device i receives the tile device i-1 held
+                tiles = [(o, t.to(corpus.devices[i]))
+                         for i, (o, t) in enumerate(tiles[-1:] + tiles[:-1])]
+            for i, (origin, tile) in enumerate(tiles):
+                if not len(queries[i]) or not len(tile):
+                    continue
+                s, j, ok = _first_stage(_Problem(queries[i], tile), min(k, len(tile)),
+                                        method, recall_target, exact_above)
+                j = j + origin * rows
+                if carry[i] is None:
+                    carry[i] = (s, j, ok)
+                else:
+                    cs, cj, cok = carry[i]
+                    cs, cj = _order(torch.cat([cs, s], dim=1), torch.cat([cj, j], dim=1),
+                                    min(k, cs.shape[1] + s.shape[1]))
+                    carry[i] = (cs, cj, cok & ok)
+        parts = [c for c in carry if c is not None]
+        scores = torch.cat([s.to(home) for s, _, _ in parts])
+        idx = torch.cat([j.to(home) for _, j, _ in parts])
+        ok = torch.cat([o.to(home) for _, _, o in parts])
+    bad = (~ok).nonzero()[:, 0]
+    if len(bad):
+        repaired_rows += len(bad)
+        fix_s, fix_i = sharded_topk_search(
+            torch.cat([q.cpu() for q in queries])[bad.cpu()].float(), corpus, k,
+            method="exact")
+        scores[bad], idx[bad] = fix_s.to(home), fix_i.to(home)
+    return scores, idx

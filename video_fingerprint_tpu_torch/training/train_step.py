@@ -23,6 +23,15 @@ come from torch's own generator.
 Masking policy (as in the JAX package): with `mask_padding` (default)
 zero-padded frames are kept out of the convs' receptive fields, the
 attention keys and the pooling.
+
+Data parallel (parallel/distributed.py): when the process is one rank of
+several, each rank passes its rows of the global batch and of the global
+draws (`DataParallel.shard_batch`). Train-mode BatchNorm then takes global
+statistics (models/layers.py), the embeddings are all-gathered before the
+loss and the accuracy, so both span the global batch as JAX computes them
+under GSPMD, and the grads are averaged over the ranks before the clip.
+The loss on every rank is then the global loss, and the step equals the
+one-device step on the global batch.
 """
 
 from __future__ import annotations
@@ -37,6 +46,11 @@ from video_fingerprint_tpu_torch.ops import device_augment as daug
 from video_fingerprint_tpu_torch.ops.losses import (
     attention_contrastive_loss,
     cnn3d_contrastive_loss,
+)
+from video_fingerprint_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    average_gradients,
+    world_size,
 )
 from video_fingerprint_tpu_torch.training.optim import clip_by_global_norm, set_learning_rates
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -61,10 +75,15 @@ def draw_extracts(generator: torch.Generator, B: int, T: int,
     return {"lengths": lengths, "u1": u1, "u2": u2}
 
 
-def draw_augmentations(generator: torch.Generator, batch: Batch) -> Dict[str, Dict]:
+def draw_augmentations(generator: torch.Generator, batch: Batch,
+                       rows: Optional[int] = None) -> Dict[str, Dict]:
     """Both sides' device-augment draws, on the generator's device: per-frame
-    parameters and Gaussian noise for clip1 ('aug1') and clip2 ('aug2')."""
+    parameters and Gaussian noise for clip1 ('aug1') and clip2 ('aug2').
+    rows: draw for this many rows instead of the batch's (the global batch,
+    under data parallel)."""
     shape = batch["clip1"].shape
+    if rows is not None:
+        shape = (rows,) + tuple(shape[1:])
     return {"aug1": daug.draw(generator, shape), "aug2": daug.draw(generator, shape)}
 
 
@@ -118,6 +137,15 @@ def _extract_masks(draws, clip1, clip2, m1, m2):
 def _gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """feats (B, T, C) rows at idx (B, T)."""
     return torch.gather(feats, 1, idx[:, :, None].expand(-1, -1, feats.shape[2]))
+
+
+def _global_rows(*embs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each (b, D) embedding of this rank -> the (world * b, D) embedding of
+    the global batch, in one gather (identity on one rank)."""
+    if world_size() == 1:
+        return embs
+    gathered = all_gather_rows(torch.stack(embs, dim=1))
+    return tuple(gathered.unbind(dim=1))
 
 
 def _accuracy(emb1, emb2, temperature) -> torch.Tensor:
@@ -203,6 +231,8 @@ def make_loss_fn(
             clip2 = daug.apply_drawn(draws["aug2"], normalize_clip(clip2), batch.get("mask2"))
         B = clip1.shape[0]
         video_ids = batch.get("video_id") if use_triplet else None
+        if video_ids is not None:
+            video_ids = all_gather_rows(video_ids)
         temperature = model.temperature
         if model_type == "attention":
             m1 = batch.get("mask1") if mask_padding else None
@@ -217,14 +247,15 @@ def make_loss_fn(
             else:
                 emb_full = fwd(fulls, fmask)
                 emb_ex = fwd(exs, exmask)
+            emb1, emb2, ex1, ex2 = _global_rows(emb_full[:B], emb_full[B:],
+                                                emb_ex[:B], emb_ex[B:])
             out = attention_contrastive_loss(
-                emb_full[:B], emb_full[B:], emb_ex[:B], emb_ex[B:],
+                emb1, emb2, ex1, ex2,
                 temperature=temperature, video_ids=video_ids, use_triplet=use_triplet,
                 triplet_weight=triplet_weight, triplet_margin=triplet_margin)
-            emb1, emb2 = emb_full[:B], emb_full[B:]
         else:
             emb = fwd_3d(torch.cat([clip1, clip2]))
-            emb1, emb2 = emb[:B], emb[B:]
+            emb1, emb2 = _global_rows(emb[:B], emb[B:])
             out = cnn3d_contrastive_loss(
                 emb1, emb2, temperature=temperature, video_ids=video_ids,
                 use_triplet=use_triplet, triplet_weight=triplet_weight,
@@ -249,9 +280,9 @@ def make_train_step(
     """The train step: (batch, draws, step) -> metrics, where `step` is the
     number of updates done before (the schedules' position). Loss and grads
     in train mode, the global-norm clip, the LRs at `step`, one AdamW update.
-    metrics['grad_norm'] is the norm of the unclipped grads. Nothing is read
-    back to the host unless `debug_nans`, which raises on the first
-    non-finite loss or grad."""
+    metrics['grad_norm'] is the norm of the unclipped grads (averaged over
+    the ranks under data parallel). Nothing is read back to the host unless
+    `debug_nans`, which raises on the first non-finite loss or grad."""
     loss_fn = make_loss_fn(model, model_type, **loss_kwargs)
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -262,6 +293,7 @@ def make_train_step(
             loss, out = loss_fn(batch, draws)
         with full_fp32():  # the backward outside autocast, TF32 off
             loss.backward()
+        average_gradients(params)
         grad_norm = clip_by_global_norm([p.grad for p in params], grad_clip)
         if debug_nans and not bool(torch.isfinite(loss) & torch.isfinite(grad_norm)):
             raise FloatingPointError(f"non-finite loss {loss.item()} or grad norm "
@@ -286,7 +318,9 @@ def make_eval_step(model: torch.nn.Module, model_type: str, mask_padding: bool =
 
     reuse_extract_features (default on) embeds the extracts from gathered
     rows of the full forward's per-frame features, which is exact in eval
-    mode (running BN statistics, no dropout)."""
+    mode (running BN statistics, no dropout). Under data parallel the loss,
+    the accuracy and the returned embeddings are the global batch's, the
+    same on every rank."""
 
     @torch.no_grad()
     def eval_step(batch: Batch, draws=None):
@@ -308,12 +342,13 @@ def make_eval_step(model: torch.nn.Module, model_type: str, mask_padding: bool =
                 else:
                     emb = model(fulls, fmask)
                     emb_ex = model(exs, exmask)
-                emb1, emb2 = emb[:B], emb[B:]
-                out = attention_contrastive_loss(emb1, emb2, emb_ex[:B], emb_ex[B:],
+                emb1, emb2, ex1, ex2 = _global_rows(emb[:B], emb[B:], emb_ex[:B],
+                                                    emb_ex[B:])
+                out = attention_contrastive_loss(emb1, emb2, ex1, ex2,
                                                  temperature=model.temperature)
             else:
                 emb = model(fulls)
-                emb1, emb2 = emb[:B], emb[B:]
+                emb1, emb2 = _global_rows(emb[:B], emb[B:])
                 out = cnn3d_contrastive_loss(emb1, emb2, temperature=model.temperature)
             out["acc"] = _accuracy(emb1, emb2, model.temperature)
         return out, emb1, emb2

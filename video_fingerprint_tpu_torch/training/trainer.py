@@ -1,7 +1,8 @@
-"""Training runtime on one device: epoch loop, validation, checkpoints, artifacts.
+"""Training runtime: epoch loop, validation, checkpoints, artifacts.
 
 Port of video_fingerprint_tpu/training/trainer.py (reference Trainer,
-train.py:17-703) for one card (or the CPU when the config says so):
+train.py:17-703), on one card (or the CPU when the config says so) or
+data-parallel over the ranks of a torch.distributed group:
 
   - the run-dir artifacts of the reference: config.json, training_info.txt,
     the fixed-width training_log.txt, TensorBoard scalars when the
@@ -20,8 +21,19 @@ train.py:17-703) for one card (or the CPU when the config says so):
     a generator seeded from the config seed and applied in the train step.
 
 The host reads the train metrics back only every `metrics_every` steps.
-Multi-device training (the JAX package's wraparound padding and replicated
-blocks) waits for the port's multi-GPU slice.
+
+Data parallel (parallel/distributed.py; JAX trainer.py:122-153): each rank
+runs this trainer on its own device with a loader of its shard of the
+data, `batch_size // world` rows per step; the config's batch_size is the
+global batch and must divide by the world size (JAX's single-host rule of
+using the largest device count that divides it has no counterpart: the
+launcher fixes the ranks). The ranks start from rank 0's weights; the
+extract and augment draws are made for the global batch from the same
+seeded generators on every rank, which each slice their rows, so W ranks
+compute what one does on the global batch. Validation gathers every
+rank's embeddings and ids, so every rank reports the same metrics. Rank 0
+alone writes config.json, training_info.txt, the logs, TensorBoard and the
+.ckpt files; every rank creates the checkpoint directory.
 """
 
 from __future__ import annotations
@@ -40,6 +52,13 @@ from video_fingerprint_tpu_torch.ops.metrics import (
     discrimination_metrics,
     retrieval_metrics,
     streaming_validation_metrics,
+)
+from video_fingerprint_tpu_torch.parallel.distributed import (
+    DataParallel,
+    all_gather_rows,
+    all_reduce_sum,
+    broadcast_module,
+    is_main_process,
 )
 from video_fingerprint_tpu_torch.training import checkpoint as ckpt
 from video_fingerprint_tpu_torch.training.optim import current_lr, make_optimizer
@@ -76,6 +95,26 @@ def _make_tb_writer(logdir):
         return _NullWriter()
 
 
+def wraparound_pad_batch(batch: dict, padded_b: int) -> dict:
+    """A rank's partial batch padded to `padded_b` rows by repeating its
+    rows (JAX trainer.py:58-70); `slice_replicated_blocks` takes the
+    repeats back out, and validate keeps padded batches out of the scalar
+    loss and accuracy (duplicated rows are false negatives in InfoNCE)."""
+    true_b = next(iter(batch.values())).shape[0]
+    if padded_b == true_b:
+        return batch
+    reps = np.arange(padded_b) % true_b
+    return {k: v[reps] for k, v in batch.items()}
+
+
+def slice_replicated_blocks(arr, nprocs: int, padded_b: int, true_b: int):
+    """Gathered outputs hold one padded_b block per rank: each block's
+    first true_b rows, re-flattened (JAX trainer.py:73-80)."""
+    a = np.asarray(arr)
+    return (a.reshape((nprocs, padded_b) + a.shape[1:])[:, :true_b]
+            .reshape((-1,) + a.shape[1:]))
+
+
 def is_new_best(auc: float, gap: float, best_auc: float,
                 best_gap: float, flat_eps: float = 1e-3) -> bool:
     """Model selection (JAX trainer.py:82-99): `auc > best_auc` as the
@@ -107,6 +146,12 @@ class Trainer:
                  run_dir):
         self.device = resolve_device(config.get("device", "cuda"))
         self.model = model.to(self.device)
+        self.dp = DataParallel()
+        self.is_main = is_main_process()
+        if config["batch_size"] % self.dp.n:
+            raise ValueError(f"global batch_size {config['batch_size']} must be divisible "
+                             f"by the {self.dp.n} ranks")
+        broadcast_module(self.model)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.config = config
@@ -148,8 +193,11 @@ class Trainer:
                 config.get("seed", 0) + 2)
 
         self.checkpoint_dir = self.run_dir / "checkpoints"
+        # every rank creates the directory (a rank on another host needs
+        # the path); only rank 0 writes into the run dir
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
-        self.writer = _make_tb_writer(self.run_dir / "tensorboard")
+        self.writer = (_make_tb_writer(self.run_dir / "tensorboard") if self.is_main
+                       else _NullWriter())
 
         self.best_val_loss = float("inf")
         self.best_val_acc = 0.0
@@ -165,6 +213,8 @@ class Trainer:
         return sum(p.numel() for p in self.model.parameters())
 
     def _save_training_info(self):
+        if not self.is_main:
+            return
         (self.run_dir / "config.json").write_text(
             json.dumps(self.config, indent=2, default=str))
         lines = [
@@ -202,13 +252,15 @@ class Trainer:
 
     def _draws(self, batch: Dict[str, torch.Tensor], generator, ratio: float,
                augment: bool = False):
+        """The step's draws for the global batch, this rank's rows of them."""
         draws = {}
+        B, T = batch["clip1"].shape[:2]
+        rows = B * self.dp.n
         if self.model_type == "attention":
-            B, T = batch["clip1"].shape[:2]
-            draws.update(draw_extracts(generator, B, T, ratio))
+            draws.update(draw_extracts(generator, rows, T, ratio))
         if augment:
-            draws.update(draw_augmentations(self.augment_generator, batch))
-        return draws or None
+            draws.update(draw_augmentations(self.augment_generator, batch, rows))
+        return self.dp.shard_batch(draws) if draws else None
 
     # ------------------------------------------------------------------
     def train_epoch(self) -> Dict[str, float]:
@@ -220,17 +272,19 @@ class Trainer:
         metrics_every = int(self.config.get("metrics_every", 10))
         epoch_t0 = time.time()
         # --profile: a torch.profiler trace of steps 2-5 of the first epoch
-        profile_window = (2, 6) if (self.config.get("profile") and self.epoch == 0) else None
+        profile_window = ((2, 6) if (self.config.get("profile") and self.epoch == 0
+                                     and self.is_main) else None)
         profiler = None
 
         loader = self.train_loader
-        try:
-            from tqdm import tqdm
+        if self.is_main:
+            try:
+                from tqdm import tqdm
 
-            loader = tqdm(self.train_loader, desc=f"Epoch {self.epoch}",
-                          total=len(self.train_loader))
-        except ImportError:
-            pass
+                loader = tqdm(self.train_loader, desc=f"Epoch {self.epoch}",
+                              total=len(self.train_loader))
+            except ImportError:
+                pass
 
         last_t = time.time()
         last_sync_batches = 0
@@ -301,28 +355,53 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validate(self) -> Dict[str, float]:
+        """Validation metrics of the whole val set, the same on every rank
+        (JAX trainer.py:366-424)."""
         sums: Dict[str, float] = {}
-        num_batches = 0
+        partial_sums: Dict[str, float] = {}
+        num_batches = num_partial = 0
         all_embeddings = []
         all_video_ids = []
         generator = torch.Generator().manual_seed(1234)
+        world = self.dp.n
         robustness_batches = []  # up to ~50 samples (reference train.py:483-491)
         robustness_budget = 50
         for batch in self.val_loader:
-            dev = _to_device(batch, self.device)
+            # the val loader keeps its last partial batch; a rank's rows are
+            # padded by wraparound to what the devices take, and the repeats
+            # are sliced back out of the gathered outputs (the loaders'
+            # shards are equal, so every rank has the same true_b)
+            true_b = batch["clip1"].shape[0]
+            padded_b = self.dp.pad_batch_size(true_b)
+            dev = _to_device(wraparound_pad_batch(batch, padded_b), self.device)
             out, emb1, emb2 = self.eval_step(
                 {k: v for k, v in dev.items() if k != "video_id"},
                 self._draws(dev, generator, 0.5))
+            # repeated rows are perfect-similarity false negatives in the
+            # InfoNCE logits: padded batches stay out of the scalar loss and
+            # accuracy unless every batch is padded
+            tgt = sums if padded_b == true_b else partial_sums
             for k, v in out.items():
                 if k.startswith("loss") or k == "acc":
-                    sums[k] = sums.get(k, 0.0) + float(v)
-            num_batches += 1
-            all_embeddings += [emb1.float().cpu().numpy(), emb2.float().cpu().numpy()]
-            all_video_ids.extend(batch["video_id"].tolist() * 2)
+                    tgt[k] = tgt.get(k, 0.0) + float(v)
+            if padded_b == true_b:
+                num_batches += 1
+            else:
+                num_partial += 1
+            # the eval step's embeddings are the global batch's, one
+            # padded_b block per rank
+            for emb in (emb1, emb2):
+                all_embeddings.append(slice_replicated_blocks(
+                    emb.float().cpu().numpy(), world, padded_b, true_b))
+            ids = all_gather_rows(dev["video_id"]).cpu().numpy()
+            all_video_ids.extend(
+                slice_replicated_blocks(ids, world, padded_b, true_b).tolist() * 2)
             if robustness_budget > 0 and self.model_type == "attention":
-                robustness_batches.append((dev["clip1"], dev.get("mask1")))
-                robustness_budget -= dev["clip1"].shape[0]
+                robustness_batches.append((dev["clip1"], dev.get("mask1"), true_b))
+                robustness_budget -= true_b * world
 
+        if num_batches == 0:  # a tiny val set: only a padded batch
+            sums, num_batches = partial_sums, num_partial
         metrics = {k: v / max(1, num_batches) for k, v in sums.items()}
         if not all_embeddings:
             return metrics
@@ -360,17 +439,21 @@ class Trainer:
     def _extract_robustness(self, batches) -> Dict[str, float]:
         """Centered extracts at ratios 0.5..0.9 of each video's true length,
         cosine to the full-video embedding, averaged over up to ~50 val
-        samples (reference train.py:483-518)."""
+        samples (reference train.py:483-518): per batch, the mean over every
+        rank's first true_b rows (the padding repeats left out)."""
         self.model.eval()
+        ratios = (0.5, 0.6, 0.7, 0.8, 0.9)
         sums: Dict[str, list] = {}
-        for clip, mask in batches:
+        for clip, mask, true_b in batches:
             B, T = clip.shape[0], clip.shape[1]
             with compute_context(self.device, self.bf16):
                 emb_full = self.model(clip, mask)
             t_true = (mask.sum(dim=1).to(torch.int32) if mask is not None
                       else torch.full((B,), T, dtype=torch.int32, device=clip.device))
             pos = torch.arange(T, device=clip.device)
-            for ratio in (0.5, 0.6, 0.7, 0.8, 0.9):
+            valid = torch.arange(B, device=clip.device) < true_b
+            per_ratio = []
+            for ratio in ratios:
                 ext_len = torch.clamp((t_true.to(torch.float32) * ratio).to(torch.int32), min=1)
                 start = torch.div(t_true - ext_len, 2, rounding_mode="floor")
                 idx = torch.clamp(start[:, None] + pos[None, :], 0, T - 1)
@@ -378,8 +461,11 @@ class Trainer:
                 submask = pos[None, :] < ext_len[:, None]
                 with compute_context(self.device, self.bf16):
                     emb_ext = self.model(sub, submask)
-                cos = float(torch.sum(emb_full * emb_ext, dim=1).mean())
-                sums.setdefault(f"extract_sim_{int(ratio * 100)}", []).append(cos)
+                per_row = torch.sum(emb_full * emb_ext, dim=1)
+                per_ratio.append(torch.where(valid, per_row, 0.0).sum())
+            cos = all_reduce_sum(torch.stack(per_ratio)) / (true_b * self.dp.n)
+            for ratio, c in zip(ratios, cos.tolist()):
+                sums.setdefault(f"extract_sim_{int(ratio * 100)}", []).append(c)
         return {k: float(np.mean(v)) for k, v in sums.items()}
 
     # ------------------------------------------------------------------
@@ -389,6 +475,8 @@ class Trainer:
         return state_dict_to_variables(sd, self.model_type)
 
     def save_checkpoint(self, is_best: bool = False, metrics: Optional[Dict] = None):
+        if not self.is_main:  # single writer: rank 0
+            return
         variables = self.variables()
         opt_sd = adamw_to_opt_state(self.optimizer, self.model, self.model_type)
         bests = {
@@ -441,9 +529,10 @@ class Trainer:
             self.optimizer.state.clear()
             print(f"Warm start from reference checkpoint {p} "
                   "(weights only; fresh optimizer state and schedule)")
-            with open(self.run_dir / "training_info.txt", "a") as f:
-                f.write(f"\n\nWarm start (weights only) from torch "
-                        f"checkpoint: {checkpoint_path}\n")
+            if self.is_main:
+                with open(self.run_dir / "training_info.txt", "a") as f:
+                    f.write(f"\n\nWarm start (weights only) from torch "
+                            f"checkpoint: {checkpoint_path}\n")
             return
         payload = ckpt.load_checkpoint(p)
         self._check_ckpt_model_type(payload.get("config"), p)
@@ -459,10 +548,13 @@ class Trainer:
         self.best_auc_roc = float(bests.get("best_auc_roc", 0.0))
         self.best_sep_gap = float(bests.get("best_sep_gap", 0.0))
         print(f"Resumed from epoch {self.epoch}")
-        with open(self.run_dir / "training_info.txt", "a") as f:
-            f.write(f"\n\nResumed from checkpoint: {checkpoint_path}\n")
+        if self.is_main:
+            with open(self.run_dir / "training_info.txt", "a") as f:
+                f.write(f"\n\nResumed from checkpoint: {checkpoint_path}\n")
 
     def _update_training_log(self, train_metrics, val_metrics, is_best):
+        if not self.is_main:
+            return
         with open(self.run_dir / "training_log.txt", "a") as f:
             if self.epoch == 0:
                 f.write("\n" + "=" * 130 + "\n")
@@ -556,6 +648,7 @@ class Trainer:
             f"Final checkpoint: {self.checkpoint_dir / 'last.ckpt'}",
             f"Best checkpoint: {self.checkpoint_dir / 'best.ckpt'}",
         ]
-        (self.run_dir / "training_summary.txt").write_text("\n".join(summary) + "\n")
+        if self.is_main:
+            (self.run_dir / "training_summary.txt").write_text("\n".join(summary) + "\n")
         print("\nTraining completed!")
         print(f"Results saved to: {self.run_dir}")
