@@ -98,7 +98,25 @@ Phases, each of which raises (exit code 1) on any failure:
      `python -m torch.distributed.run --standalone --nproc_per_node 1`
      (NCCL, world 1) and without it, with its artifacts, K1 in validation
      only and the steps/s of both. Its times are k shards or ranks on one
-     card: the cost of sharding, not a speed-up.
+     card: the cost of sharding, not a speed-up;
+ 12. multiple processes, on the one card: the fused space-to-depth model
+     (conv0 a 3x3 stride-1 conv over 2x2 blocks) through the scan's
+     batching stage on phase 3's weights and clips against the standard
+     fused model (cosine >= 0.9999, K1 launched 4 times per forward), and
+     conv0 in both layouts at 64 x 128 frames (CUDA-graph replay); two
+     spawned gloo ranks sharing cuda:0, each regenerating phase 7's data
+     from the seed and staging its half: sharded_topk_search of the 4,096
+     queries over the 10^6 x 256 index at k = 20 in f32 and bf16 storage
+     and the ring sharded_topk_cosine on the 10^5 self-search, every method
+     (exact, certified strict, certified and certified-bf16 at 0.95), held
+     to the one-process search (both ranks' results identical; exact:
+     indices equal, scores within 1e-5; strict: exact's scores; the
+     threshold methods: phase 7's contracts against the float64 oracle),
+     with each rank's ms, its ms in collectives, the one-process ms and the
+     bound; FingerprintIndex.search across the ranks equal to one
+     process's; tools/multiproc_dedup.py under `python -m
+     torch.distributed.run --standalone` with 2 gloo ranks on cuda:0 and
+     with 1 rank on NCCL. A rank that fails or hangs fails the phase.
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -2358,8 +2376,344 @@ def phase_multigpu(torch, workdir: Path, smi: str):
           "seconds": time.perf_counter() - t0})
 
 
+MP_RANKS = 2
+MP_REPEATS = 3  # timed calls per cross-rank search: a fixed count, the same on every rank
+MP_METHODS = (("exact", None),) + CERTIFIED_METHODS
+S2D_FRAMES = BATCH * 128  # conv0 timed at 64 videos x 128 frames
+
+
+def _method_name(method, thr):
+    return method if thr is None else f"{method}@{thr}"
+
+
+def _wall_ms(torch, fn, repeats: int = MP_REPEATS):
+    """Host-clock ms per call over `repeats` calls ending in a synchronize,
+    after one call, and the ms per call spent in the port's collectives. A
+    call across ranks waits for every rank, so its time is the host's, and
+    every rank makes the same count of calls."""
+    from video_fingerprint_tpu_torch.parallel import distributed
+
+    fn()
+    torch.cuda.synchronize()
+    if distributed.world_size() > 1:
+        torch.distributed.barrier()
+    c0, t0 = distributed.collective_seconds, time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / repeats,
+            (distributed.collective_seconds - c0) * 1e3 / repeats)
+
+
+def _mp_rank(rank: int, world: int, port: int, out_path: str) -> None:
+    """One rank of the cross-process search (a spawned process): joins a
+    gloo group through the launcher's environment, both ranks on cuda:0,
+    regenerates phase 7's data from the seed, stages its block, and runs
+    every search of the phase with its results and times."""
+    import torch
+
+    from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    maybe_initialize_distributed(CARD, backend="gloo")
+    rng, corpus, _, _, _, queries, _ = _index_data()
+    q_dev = torch.from_numpy(queries).to(CARD)
+    out = {"backend": torch.distributed.get_backend(), "searches": {}, "held": {}}
+
+    def run(what, staged, search):
+        for method, thr in MP_METHODS:
+            before, launches = topk.repaired_rows, attn.launches
+            scores, idx = (t.cpu().numpy() for t in search(staged, method, thr))
+            repaired = topk.repaired_rows - before
+            ms, coll_ms = _wall_ms(torch, lambda: search(staged, method, thr))
+            out["searches"][f"{what} {_method_name(method, thr)}"] = {
+                "scores": scores, "idx": idx, "ms": ms, "collective_ms": coll_ms,
+                "repaired_rows": repaired, "attention_launches": attn.launches - launches}
+        out["held"][what] = [(staged.offset(i), len(staged.valid(i)))
+                             for i in range(len(staged.shards))]
+
+    for storage in ("f32", "bf16"):
+        dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+        staged = topk.stage_sharded_corpus(corpus, [CARD], dtype)
+        run(storage, staged, lambda c, m, thr: topk.sharded_topk_search(
+            q_dev, c, 20, exact_above=thr, method=m))
+        del staged
+        index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
+        index.add(corpus)
+        scores, idx = index.search(queries, k=20, exact_above=0.99)
+        out["index " + storage] = {"scores": scores, "idx": idx,
+                                   "sharded": index._staged_sharded is not None}
+        del index
+        torch.cuda.empty_cache()
+    del corpus
+    staged = topk.stage_sharded_corpus(_self_search_rows(rng), [CARD])
+    run("ring", staged, lambda c, m, thr: topk.sharded_topk_cosine(
+        c, 20, exact_above=thr, method=m))
+    torch.distributed.destroy_process_group()
+    torch.save(out, out_path)
+
+
+def _mp_spawn(torch, workdir: Path):
+    """MP_RANKS gloo ranks of _mp_rank on cuda:0; each must exit 0 within
+    its limit, or the phase fails."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    outs = [workdir / f"mp_rank{r}.pt" for r in range(MP_RANKS)]
+    procs = [ctx.Process(target=_mp_rank, args=(r, MP_RANKS, port, str(outs[r])))
+             for r in range(MP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    require(all(p.exitcode == 0 for p in procs),
+            f"cross-rank search: exit codes {[p.exitcode for p in procs]}")
+    return [torch.load(o, weights_only=False) for o in outs], time.perf_counter() - t0
+
+
+def _mp_references(torch):
+    """The one-process searches on the card that the ranks are held to:
+    for each storage and method the result and its ms, exact's float64
+    oracle on the checked rows, and the one-process index's answer."""
+    from video_fingerprint_tpu_torch.inference.index import (
+        FingerprintIndex,
+        bf16_bits,
+        bf16_values,
+    )
+    from video_fingerprint_tpu_torch.ops import topk
+
+    rng, corpus, src, dst, _, queries, checked = _index_data()
+    planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
+    q_dev = torch.from_numpy(queries).to(CARD)
+    refs = {}
+
+    def run(what, search, rows, sims, oracle_idx, planted, bound):
+        for method, thr in MP_METHODS:
+            before = topk.repaired_rows
+            scores, idx = (t.cpu().numpy() for t in search(method, thr))
+            repaired = topk.repaired_rows - before
+            ms, _ = _wall_ms(torch, lambda: search(method, thr))
+            refs[f"{what} {_method_name(method, thr)}"] = {
+                "scores": scores, "idx": idx, "ms": ms, "repaired_rows": repaired,
+                "rows": rows, "sims": sims,
+                "oracle_idx": oracle_idx, "planted": planted, "thr": thr,
+                "method": method, "bound_ms": bound[0], "bound_by": bound[1]}
+
+    for storage in ("f32", "bf16"):
+        dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+        single = topk.stage_corpus(corpus, CARD, dtype)
+        cosine = storage == "bf16"
+        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
+        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
+        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
+        del stored
+        run(storage, lambda m, thr: topk.topk_search(q_dev, single, 20, exact_above=thr,
+                                                     method=m),
+            checked, sims, oracle_idx, planted,
+            _search_bound_ms(INDEX_QUERIES, INDEX_ROWS, single.numel() * single.element_size()))
+        del single
+        index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
+        index.add(corpus)
+        scores, idx = index.search(queries, k=20, exact_above=0.99)
+        refs["index " + storage] = {"scores": scores, "idx": idx}
+        del index
+        torch.cuda.empty_cache()
+    del corpus
+    emb = _self_search_rows(rng)
+    e_dev = torch.from_numpy(emb).to(CARD)
+    rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
+    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    run("ring", lambda m, thr: topk.topk_cosine(e_dev, 20, exact_above=thr, method=m),
+        rows, sims, oracle_idx, [(r, r + 1) for r in range(0, SELF_SEARCH_ROWS, 1000)],
+        _search_bound_ms(SELF_SEARCH_ROWS, SELF_SEARCH_ROWS, emb.nbytes))
+    return refs
+
+
+def _mp_search(torch, workdir: Path, smi: str):
+    """Phase 7's 10^6 x 256 index (4,096 queries, k = 20) in f32 and bf16
+    storage, and its 10^5 self-search, across two gloo ranks on cuda:0,
+    each rank holding half of the corpus: every method, every rank's result
+    identical, exact equal to the one-process exact search (indices, scores
+    within 1e-5) and the float64 oracle, the certified methods to phase 7's
+    contracts; FingerprintIndex.search across the ranks equal to one
+    process's. ms per rank (host clock, each call waits for both ranks),
+    the collectives' ms, the one-process ms and the bound."""
+    refs = _mp_references(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, seconds = _mp_spawn(torch, workdir)
+    half = INDEX_ROWS // MP_RANKS
+    for r, out in enumerate(ranks):
+        require(out["held"]["f32"] == [(r * half, half)], f"rank {r} held {out['held']}")
+        require(out["backend"] == "gloo", f"rank {r}: backend {out['backend']}")
+    rows = {}
+    for name, ref in ((n, v) for n, v in refs.items() if not n.startswith("index")):
+        got = [out["searches"][name] for out in ranks]
+        for r in range(1, MP_RANKS):
+            require(np.array_equal(got[r]["idx"], got[0]["idx"])
+                    and np.array_equal(got[r]["scores"], got[0]["scores"]),
+                    f"{name}: rank {r}'s result differs from rank 0's")
+        scores, idx = got[0]["scores"], got[0]["idx"]
+        exact = refs[name.split(" ")[0] + " exact"]
+        rows_ = ref["rows"]
+        if ref["method"] == "exact":
+            require(bool((idx == ref["idx"]).all()), f"{name}: indices differ from one process")
+            diff = float(np.abs(scores - ref["scores"]).max())
+            require(diff <= 1e-5, f"{name}: scores off one process's by {diff}")
+            err = _check_oracle(scores[rows_], idx[rows_], ref["sims"], ref["oracle_idx"], name)
+        elif ref["thr"] is None:
+            diff = float(np.abs(np.sort(scores, 1) - np.sort(exact["scores"], 1)).max())
+            require(diff <= 1e-6, f"{name}: not exact's scores ({diff})")
+            err = _check_oracle(scores[rows_], idx[rows_], ref["sims"], ref["oracle_idx"], name)
+        else:
+            err = _check_threshold(scores[rows_], idx[rows_], ref["sims"], ref["thr"], name)
+            for row, other in ref["planted"]:
+                hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
+                require(hits.get(int(other), -1.0) >= ref["thr"],
+                        f"{name}: planted copy of row {row} not found")
+            diff = None
+        require(all(g["attention_launches"] == 0 for g in got),
+                f"{name}: a hand kernel ran in the search")
+        require(len({g["repaired_rows"] for g in got}) == 1,
+                f"{name}: the ranks repaired different rows")
+        rows[name] = {"ms_per_rank": [g["ms"] for g in got],
+                      "collective_ms_per_rank": [g["collective_ms"] for g in got],
+                      "one_process_ms": ref["ms"], "bound_ms": ref["bound_ms"],
+                      "bound_by": ref["bound_by"],
+                      "repaired_rows_per_rank": [g["repaired_rows"] for g in got],
+                      "one_process_repaired_rows": ref["repaired_rows"],
+                      "max_diff_vs_one_process": diff, "max_score_err": err}
+        emit({"phase": "multiproc", "check": "search", "search": name,
+              "ranks_on_one_card": MP_RANKS, "smi": smi, **rows[name]})
+    for storage in ("f32", "bf16"):
+        ref = refs["index " + storage]
+        for r, out in enumerate(ranks):
+            got = out["index " + storage]
+            require(got["sharded"], f"index {storage}: rank {r} did not shard")
+            require(bool((got["idx"] == ref["idx"]).all()),
+                    f"index {storage}: rank {r}'s indices differ from one process")
+            diff = float(np.abs(got["scores"] - ref["scores"]).max())
+            require(diff <= 1e-5, f"index {storage}: rank {r} off by {diff}")
+    return {"searches": rows, "ranks_seconds": seconds}
+
+
+def _mp_worker(torch, smi: str):
+    """tools/multiproc_dedup.py under torch.distributed.run: two gloo ranks
+    sharing cuda:0, and one rank on NCCL; each rank must print its OK line."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    runs = {}
+    for name, nproc, extra in (("gloo_2_ranks_one_card", 2,
+                                ["--device", "cuda:0", "--backend", "gloo"]),
+                               ("nccl_1_rank", 1, [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(nproc), "-m", "video_fingerprint_tpu_torch.tools.multiproc_dedup", *extra],
+            env=env, capture_output=True, text=True, timeout=300)
+        ok = proc.stdout.count(f"sharded dedup over {nproc} processes OK")
+        require(proc.returncode == 0 and ok == nproc,
+                f"multiproc_dedup ({name}) exited {proc.returncode}, {ok} OK lines: "
+                f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        runs[name] = {"ranks": nproc, "seconds": time.perf_counter() - t0}
+    emit({"phase": "multiproc", "check": "worker", "smi": smi, **runs})
+    return runs
+
+
+def _s2d(torch, workdir: Path, smi: str):
+    """The space-to-depth first conv on the card: phase 3's weights and clips
+    through the scan's batching stage with the fused s2d model against the
+    standard fused model (cosine >= 0.9999 per clip, K1 launched 4 times
+    per forward), and conv0 in both layouts at 64 x 128 frames by CUDA-graph
+    replay (the s2d conv alone and with its relayout of the input)."""
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.models import create_model
+    from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
+    from video_fingerprint_tpu_torch.models.layers import space_to_depth
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+    from video_fingerprint_tpu_torch.utils.torch_compat import variables_to_state_dict
+
+    rng = np.random.default_rng(SEED)
+    model_path = workdir / "model_s2d.pth"
+    _write_model(torch, model_path, rng)  # phase 3's draws: its clips come next
+    items, _ = _seeded_clips(rng)
+    per_bucket = {}
+    for _, clip in items:
+        b = next(b for b in BUCKETS if clip.shape[0] <= b)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    forwards = sum(-(-n // BATCH) for n in per_bucket.values())
+    embs = {}
+    for layout in ("standard", "s2d"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            scanner = FingerprintScanner(str(model_path), device=CARD, batch_size=BATCH)
+        if layout == "s2d":
+            standard_conv0 = scanner.model.spatial_encoder.encoder[0]
+            sd = fuse_state_dict(variables_to_state_dict(scanner.variables, "attention"),
+                                 s2d=True)
+            model = create_model("attention", fused=True, s2d=True)
+            model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                                  strict=True)
+            model.to(CARD).eval().spatial_encoder.to(memory_format=torch.channels_last)
+            scanner.model = model
+        scanner.warmup()
+        _zero_launches()
+        embs[layout] = scanner.embed_clips(items)
+        torch.cuda.synchronize()
+        launches = _launches()["attention"]
+        require(launches == 4 * forwards,
+                f"s2d {layout}: K1 launched {launches} times, not 4 x {forwards} forwards")
+    cos = min(float(np.dot(embs["s2d"][k], embs["standard"][k])) for k, _ in items)
+    require(cos >= 0.9999, f"s2d vs standard fused: cosine {cos}")
+    frames = torch.from_numpy(rng.integers(0, 256, (S2D_FRAMES, 64, 64, 3),
+                                           dtype=np.uint8)).to(CARD)
+    x = frames.permute(0, 3, 1, 2).float() / 255.0  # the encoder's channels-last input
+    conv0 = model.spatial_encoder.encoder[0]
+    blocks = space_to_depth(x)
+    with torch.inference_mode(), full_fp32():
+        ms = {"standard_5x5_s2": graph_ms(lambda: standard_conv0(x), calls=3),
+              "s2d_3x3_s1": graph_ms(lambda: conv0(blocks), calls=3),
+              "s2d_with_relayout": graph_ms(lambda: conv0(space_to_depth(x)), calls=3),
+              "relayout": graph_ms(lambda: space_to_depth(x), calls=3)}
+    row = {"videos": len(items), "forwards": forwards, "attention_launches": launches,
+           "min_cos_vs_standard": cos, "conv0_frames": S2D_FRAMES, "conv0_ms": ms}
+    emit({"phase": "multiproc", "check": "s2d", "smi": smi, **row})
+    return row
+
+
+def phase_multiproc(torch, workdir: Path, smi: str):
+    """The corpus-sharded search across processes (two gloo ranks sharing
+    the one card), the multi-process dedup worker under the launcher, and
+    the s2d conv0 fold. Times are two ranks on one card: the cost of the
+    process layer, not a speed-up."""
+    from video_fingerprint_tpu_torch.parallel.distributed import world_size
+
+    require(world_size() == 1, "this process must not be in a process group")
+    t0 = time.perf_counter()
+    s2d = _s2d(torch, workdir, smi)
+    _settle(torch)
+    search = _mp_search(torch, workdir, smi)
+    worker = _mp_worker(torch, smi)
+    emit({"phase": "multiproc", "smi": smi, "s2d": s2d, "worker": worker,
+          "ranks_seconds": search["ranks_seconds"],
+          "search_ms": {k: {"ms_per_rank": v["ms_per_rank"],
+                            "one_process_ms": v["one_process_ms"]}
+                        for k, v in search["searches"].items()},
+          "seconds": time.perf_counter() - t0})
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native", "multigpu")
+          "native", "multigpu", "multiproc")
 
 
 def _settle(torch) -> None:
@@ -2417,6 +2771,8 @@ def main(argv=None) -> int:
                 phase_native(torch, work, model_path, model3d_path, smi)
             elif name == "multigpu":
                 phase_multigpu(torch, work, smi)
+            elif name == "multiproc":
+                phase_multiproc(torch, work, smi)
     emit({"phase": "done", "phases": run, "seconds": time.perf_counter() - t_start})
     if run != list(PHASES):
         return 0

@@ -1,8 +1,8 @@
 """The port stands alone: no module of video_fingerprint_tpu_torch imports jax,
 the JAX package, ml_dtypes, cv2 or av at import time (the 3D model, the
 index, the scan cache, the training modules, device augment, the native
-host bindings and the multi-device modules among them; importing the
-bindings builds nothing), and
+host bindings, the multi-device modules and the tools among them;
+importing the bindings builds nothing), and
 chip_smoke.py refuses to run without a card."""
 
 import subprocess
@@ -24,12 +24,13 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "video_fingerprint_tpu"))
 print(len(names), bad)
-assert len(names) >= 46, names
+assert len(names) >= 49, names
 for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.device",
              "config", "ops.losses", "ops.metrics", "training.optim", "training.train_step",
              "training.trainer", "cli.train", "data.dataset", "data.augment", "data.pairs",
              "ops.device_augment", "utils.native", "utils.native_decode",
-             "parallel.mesh", "parallel.distributed"):
+             "parallel.mesh", "parallel.distributed", "tools.multiproc_dedup",
+             "tools.convert_checkpoint", "tools.export_torch_checkpoint"):
     assert pkg.__name__ + "." + name in names, name
 from video_fingerprint_tpu_torch.utils import native, native_decode
 assert not (native.LIBRARY.tried or native_decode.LIBRARY.tried)

@@ -1,5 +1,5 @@
-"""Rank processes for the port's data-parallel tests
-(tests/test_torch_port_dp_train.py).
+"""Rank processes for the port's multi-process tests
+(tests/test_torch_port_dp_train.py, tests/test_torch_port_multiproc_topk.py).
 
     python -m tests.torch_port_ranks <task> <rank> <world> <workdir>
 
@@ -178,7 +178,64 @@ def _task_cli(inputs, rank, world):
     return {"rc": main(inputs["argv"])}
 
 
-TASKS = {"bn": _task_bn, "step": _task_step, "equiv": _task_equiv, "cli": _task_cli}
+def _task_search(inputs, rank, world):
+    """The corpus-sharded searches across the ranks: every case of
+    inputs["cases"] (a ring or a query search of one corpus, staged on this
+    rank over `local` CPU devices) with the rows this rank staged and the
+    rows sent to repair; the index's search and the scanner's duplicate
+    groups; the collectives alone."""
+    from video_fingerprint_tpu_torch.inference import scanner as scanner_mod
+    from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
+    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.parallel import distributed
+
+    arrays = inputs["arrays"]
+    out = {"cases": {}}
+    for case in inputs["cases"]:
+        dtype = torch.bfloat16 if case["storage"] == "bf16" else torch.float32
+        staged = topk.stage_sharded_corpus(arrays[case["corpus"]], ["cpu"] * case["local"],
+                                           dtype)
+        kwargs = dict(method=case["method"], exact_above=case["thr"],
+                      recall_target=case["recall"])
+        before = topk.repaired_rows
+        if case["kind"] == "ring":
+            s, i = topk.sharded_topk_cosine(staged, case["k"], **kwargs)
+        else:
+            s, i = topk.sharded_topk_search(arrays[case["queries"]], staged, case["k"],
+                                            **kwargs)
+        out["cases"][case["name"]] = {
+            "scores": s.numpy(), "idx": i.numpy(), "repaired": topk.repaired_rows - before,
+            "held": [(staged.offset(j), len(staged.valid(j)))
+                     for j in range(len(staged.shards))]}
+
+    out["index"] = {}
+    for storage in ("f32", "bf16"):
+        index = FingerprintIndex(dim=arrays["embeddings"].shape[1], device="cpu",
+                                 storage=storage)
+        index.add(arrays["embeddings"])
+        s, i = index.search(arrays["queries"], k=10)
+        out["index"][storage] = {"scores": s, "idx": i,
+                                 "sharded": index._staged_sharded is not None}
+
+    calls = []
+    real = scanner_mod.sharded_topk_cosine
+    scanner_mod.sharded_topk_cosine = lambda *a, **k: calls.append(1) or real(*a, **k)
+    scanner = scanner_mod.FingerprintScanner(inputs["checkpoint"], device="cpu")
+    groups = scanner.find_duplicates(inputs["fingerprints"], 0.99, topk_threshold=10)
+    out["scanner"] = {"groups": sorted(sorted(item["path"] for item in g) for g in groups),
+                      "ring_calls": len(calls)}
+
+    out["collectives"] = {
+        "gather": distributed.all_gather_stack(torch.arange(5) + 10 * rank),
+        "and": distributed.all_ranks_true(torch.tensor([True, rank != 1, True])),
+        "sum": distributed.all_reduce_sum(torch.tensor([float(rank), 1.0])),
+        "shift": distributed.ring_shift(torch.full((3,), float(rank))),
+    }
+    return out
+
+
+TASKS = {"bn": _task_bn, "step": _task_step, "equiv": _task_equiv, "cli": _task_cli,
+         "search": _task_search}
 
 
 def main(argv) -> int:

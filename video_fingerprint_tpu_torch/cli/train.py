@@ -19,7 +19,8 @@ the batch (train.py:834-837), and no arguments run the quick-test mode
 bf16. --device_augment runs the clip augmentations on the card inside the
 train step (the loaders then apply only resize and JPEG); --native_decode
 decodes eval-mode attention loads with the native libav worker. --orbax is
-not ported: it exits with an error rather than run something else.
+not ported and cannot be (orbax.checkpoint imports jax): it exits with an
+error rather than run something else.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ import argparse
 import sys
 from pathlib import Path
 
-NOT_PORTED = {
-    "orbax": "Orbax checkpoint directories are not ported (the port writes .ckpt files)",
-}
+from video_fingerprint_tpu_torch.training.checkpoint import ORBAX_REFUSAL
+
+NOT_PORTED = {"orbax": ORBAX_REFUSAL + "; the port writes .ckpt files"}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -169,9 +169,15 @@ class FingerprintIndex:
         `exact_above` is passed to the search, which is complete above any
         threshold (ops/topk.py).
 
-        With more than one device and at least 8 rows per device (the JAX
-        index's condition) the search runs corpus-sharded
-        (ops/topk.py::sharded_topk_search, N/d rows per device); its
+        With more than one shard and at least 8 rows per shard (the JAX
+        index's condition, its device count spanning every process) the
+        search runs corpus-sharded (ops/topk.py::sharded_topk_search, N/d
+        rows per shard); the shards are this process's devices times the
+        ranks of its process group, if any, where every rank holds the same
+        index, searches the same queries and gets the same answer. The
+        search is then a collective: every rank of the group must call it,
+        and a call on one rank alone (rank 0 under the single-writer rule of
+        parallel/distributed.py::is_main_process) waits for the others. The
         row-sharded corpus is staged once and kept until the next change,
         and staging it drops the single-device copy."""
         from video_fingerprint_tpu_torch.ops.topk import (
@@ -179,11 +185,13 @@ class FingerprintIndex:
             stage_sharded_corpus,
             topk_search,
         )
+        from video_fingerprint_tpu_torch.parallel.distributed import world_size
         from video_fingerprint_tpu_torch.parallel.mesh import as_devices
 
         n = len(self)
         devices = as_devices(self._devices, self.device)
-        if len(devices) > 1 and n >= 8 * len(devices):
+        shards = len(devices) * world_size()
+        if shards > 1 and n >= 8 * shards:
             if self._staged_sharded is None:
                 dtype = torch.bfloat16 if self.storage == "bf16" else torch.float32
                 self._staged_sharded = stage_sharded_corpus(self._flat_embeddings(),

@@ -56,11 +56,8 @@ from video_fingerprint_tpu_torch.inference.index import identity_mismatch
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
 from video_fingerprint_tpu_torch.ops.topk import sharded_topk_cosine, topk_cosine
-from video_fingerprint_tpu_torch.parallel.mesh import (
-    as_devices,
-    pad_to_multiple,
-    platform_devices,
-)
+from video_fingerprint_tpu_torch.parallel.distributed import world_size
+from video_fingerprint_tpu_torch.parallel.mesh import as_devices, pad_to_multiple
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
 from video_fingerprint_tpu_torch.utils import native
 from video_fingerprint_tpu_torch.utils import native_decode as native_decode_lib
@@ -208,7 +205,11 @@ class FingerprintScanner:
     runs there and says so. The single-video and sequential paths stay on
     `device`. `devices` (the given list, else the platform's) is also what
     the top-k duplicate search shards over once it has at least 8 videos
-    per device (JAX scanner.py:775-780).
+    per device (JAX scanner.py:775-780). Under a process group of several
+    ranks the default list is the rank's own `device`, and the search's
+    shards are every rank's devices: each rank passes the same embeddings
+    and gets the same duplicate groups, so every rank must run the search
+    (a call on one rank alone waits for the others).
     """
 
     def __init__(
@@ -226,8 +227,8 @@ class FingerprintScanner:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.devices = (platform_devices(self.device) if isinstance(data_parallel, bool)
-                        else as_devices(data_parallel))
+        self.devices = as_devices(None if isinstance(data_parallel, bool) else data_parallel,
+                                    self.device)
         self.native_preprocess = False
         if native_preprocess:
             self.native_preprocess = native.available()
@@ -749,7 +750,7 @@ class FingerprintScanner:
     def _find_duplicates_topk(self, embeddings, paths, fingerprints, threshold):
         """k-NN candidates from exact top-k + the greedy grouping the
         reference applies to its FAISS results (fingerprint.py:515-548)."""
-        n, d = len(embeddings), len(self.devices)
+        n, d = len(embeddings), len(self.devices) * world_size()
         if d > 1 and n >= 8 * d:  # corpus-sharded ring (JAX scanner.py:775-780)
             sims, idx = sharded_topk_cosine(embeddings, min(20, n), devices=self.devices,
                                             exact_above=threshold)

@@ -21,7 +21,9 @@ def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
 
     kwargs: spatial_dim, temporal_dim, embedding_dim, num_attention_blocks
     (attention), embedding_dim, frame_stride, dropout (3D), the reference's
-    keys, and fused (BN folded into the convs; weights from models/fuse.py).
+    keys, fused (BN folded into the convs; weights from models/fuse.py) and,
+    for attention, s2d (the space-to-depth first conv, off by default; with
+    fused, weights from fuse_state_dict(s2d=True)).
     """
     if model_type == "attention":
         return VideoFingerprintAttention(
@@ -30,6 +32,7 @@ def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
             embedding_dim=kwargs.get("embedding_dim", 256),
             num_attention_blocks=kwargs.get("num_attention_blocks", 4),
             fused=kwargs.get("fused", False),
+            s2d=kwargs.get("s2d", False),
         )
     if model_type in ("3d", "cnn3d"):
         return VideoFingerprint3D(

@@ -37,10 +37,10 @@ class VideoFingerprintAttention(nn.Module):
 
     def __init__(self, spatial_dim: int = 128, temporal_dim: int = 256,
                  embedding_dim: int = 256, num_attention_blocks: int = 4,
-                 num_heads: int = 8, fused: bool = False):
+                 num_heads: int = 8, fused: bool = False, s2d: bool = False):
         super().__init__()
         self.spatial_dim = spatial_dim
-        self.spatial_encoder = SpatialEncoder(spatial_dim, fused=fused)
+        self.spatial_encoder = SpatialEncoder(spatial_dim, fused=fused, s2d=s2d)
         self.temporal_projection = nn.Linear(spatial_dim, temporal_dim)
         self.pos_encoding = PositionalEncoding(temporal_dim)
         self.temporal_conv_blocks = nn.ModuleList(

@@ -123,29 +123,45 @@ def _bn_or_identity(bn: nn.Module, fused: bool) -> nn.Module:
     return nn.Identity() if fused else bn
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, 4C, H/2, W/2): each 2x2 block of pixels becomes
+    one pixel of 4C channels, channel (u * 2 + v) * C + c holding channel c
+    of the block's pixel (u, v), the packing of JAX SpatialEncoder's
+    (n, h, w, c) -> (n, h/2, w/2, 4c) reshape (layers.py:243-258). The
+    result is channels-last in memory, as the encoder's convs take it."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space-to-depth needs an even frame size, got {h}x{w}")
+    nhwc = x.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
+    blocks = nhwc.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+    return blocks.permute(0, 3, 1, 2)
+
+
 class SpatialEncoder(nn.Module):
     """4x stride-2 conv (+BN) + ReLU, global mean, Linear. (N, 3, H, W) -> (N, out).
 
     fused=True drops the BatchNorms: their eval affine is folded into the
-    conv weights by models/fuse.py.
+    conv weights by models/fuse.py. s2d=True takes the space-to-depth layout
+    of the first conv (JAX `s2d`, off by default): the input's 2x2 blocks
+    become 12 channels and conv0 a 3x3 stride-1 conv with padding 1, whose
+    weights come from models/fuse.py (fuse_state_dict(s2d=True)).
     """
 
-    def __init__(self, out_dim: int = 128, fused: bool = False):
+    def __init__(self, out_dim: int = 128, fused: bool = False, s2d: bool = False):
         super().__init__()
+        self.s2d = s2d
         layers = []
         in_ch = 3
         for ch, k, p in [(32, 5, 2), (64, 3, 1), (128, 3, 1), (256, 3, 1)]:
-            layers += [
-                nn.Conv2d(in_ch, ch, k, stride=2, padding=p),
-                _bn_or_identity(BatchNorm2d(ch), fused),
-                nn.ReLU(),
-            ]
+            conv = (nn.Conv2d(4 * in_ch, ch, 3, stride=1, padding=1) if s2d and in_ch == 3
+                    else nn.Conv2d(in_ch, ch, k, stride=2, padding=p))
+            layers += [conv, _bn_or_identity(BatchNorm2d(ch), fused), nn.ReLU()]
             in_ch = ch
         layers += [nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(in_ch, out_dim)]
         self.encoder = nn.Sequential(*layers)  # indices 0..14 as in the reference
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+        return self.encoder(space_to_depth(x) if self.s2d else x)
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -50,7 +50,9 @@ repair since import.
 `sharded_topk_search` and the ring `sharded_topk_cosine` run the same
 searches over a corpus row-sharded across a device list
 (`stage_sharded_corpus`; JAX ops/topk.py:875-1164), each shard's work being
-the single-device search on its device.
+the single-device search on its device, and across the ranks of a
+torch.distributed process group, every rank holding one block of the
+corpus and returning the same result (JAX's multi-process mesh).
 """
 
 from __future__ import annotations
@@ -62,6 +64,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from video_fingerprint_tpu_torch.parallel.distributed import (
+    all_gather_stack,
+    all_ranks_true,
+    ring_shift,
+)
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 QUERY_BLOCK = 1024  # queries per tile
@@ -386,37 +393,71 @@ def topk_cosine(embeddings: torch.Tensor, k: int, exact_above: Optional[float] =
 
 # ------------------------------------------------------------------ sharded
 #
-# The corpus-sharded searches of JAX ops/topk.py:875-1164, in one process
-# over a device list (parallel/mesh.py): shard i of the row-sharded corpus
-# lives on devices[i], and each shard's local work is the single-device
-# search above on that device. Results come back on devices[0], ordered by
-# (score desc, index asc) as the single-device search orders them.
+# The corpus-sharded searches of JAX ops/topk.py:875-1164 over a device list
+# (parallel/mesh.py): shard i of the row-sharded corpus lives on
+# devices[i], and each shard's local work is the single-device search above
+# on that device. Under a process group of W > 1 ranks (parallel/
+# distributed.py) the shards of every rank together make the corpus, as
+# JAX's mesh spans processes when process_count() > 1: each rank stages and
+# searches its own block, the ranks exchange candidate lists (the search)
+# or tiles (the ring) through collectives, and every rank returns the same
+# result, the counterpart of JAX `_replicate_for_host` (:827-849). Results
+# come back on devices[0], ordered by (score desc, index asc) as the
+# single-device search orders them.
 
 
 class ShardedCorpus:
-    """An (N, D) corpus padded on the host to d * rows rows and row-sharded
-    over d devices: `shards[i]` holds rows [i*rows, (i+1)*rows) on
-    devices[i]. The padded rows are zero and never scored (`valid`)."""
+    """An (N, D) corpus row-sharded over the devices of W ranks (W = 1
+    without a process group). It is cut into W blocks of `block` =
+    ceil(N / W) rows: rank r holds block r alone, padded on the host to
+    d * rows rows, and its `shards[i]` holds the block's rows
+    [i*rows, (i+1)*rows) on devices[i], so it starts at global row
+    r*block + i*rows. Global shard g is shard g mod d of rank g // d; every
+    rank has the same d and rows. The padded rows are zero and never
+    scored (`valid`)."""
 
-    def __init__(self, shards, n: int):
+    def __init__(self, shards, n: int, world: int, rank: int, block: int):
         self.shards = list(shards)
         self.n = n
         self.rows = self.shards[0].shape[0]
         self.devices = [s.device for s in self.shards]
+        self.world, self.rank, self.block = world, rank, block
+
+    def span(self, g: int) -> Tuple[int, int]:
+        """Global shard g's first row and its count of valid rows."""
+        d = len(self.shards)
+        base = (g // d) * self.block
+        first = base + (g % d) * self.rows
+        return first, max(0, min(self.rows, min(self.n, base + self.block) - first))
+
+    def offset(self, i: int) -> int:
+        """This rank's shard i's first global row."""
+        return self.span(self.rank * len(self.shards) + i)[0]
 
     def valid(self, i: int) -> torch.Tensor:
-        """Shard i's corpus rows, without its padding."""
-        return self.shards[i][:max(0, min(self.rows, self.n - i * self.rows))]
+        """This rank's shard i's corpus rows, without its padding."""
+        return self.shards[i][:self.span(self.rank * len(self.shards) + i)[1]]
+
+    def block_rows(self, r: int) -> int:
+        """The count of valid rows rank r holds."""
+        return max(0, min(self.block, self.n - r * self.block))
 
 
-def stage_sharded_corpus(corpus, devices, dtype: Optional[torch.dtype] = None
+def stage_sharded_corpus(corpus, devices=None, dtype: Optional[torch.dtype] = None
                          ) -> ShardedCorpus:
     """Pad the corpus on the host and copy one row shard to each device
     (JAX stage_sharded_corpus): the full matrix never lands on one device,
     so each device holds N/d rows. Pass the result to `sharded_topk_search`
     to reuse it across searches. dtype=torch.bfloat16 rounds on the host
     first (half the copy and the memory), as `stage_corpus` does; None
-    keeps a bfloat16 tensor's storage and stores anything else in f32."""
+    keeps a bfloat16 tensor's storage and stores anything else in f32.
+
+    Under a process group of W > 1 ranks every rank passes the same full
+    corpus (as every JAX process does) and stages only its own block of
+    ceil(N / W) rows over its own devices (`devices`, by default the rank's
+    card: parallel/mesh.py::as_devices); no rank holds another's rows.
+    The ranks check that they staged alike (N, D, devices, dtype)."""
+    from video_fingerprint_tpu_torch.parallel import distributed
     from video_fingerprint_tpu_torch.parallel.mesh import as_devices
 
     devices = as_devices(devices)
@@ -428,10 +469,20 @@ def stage_sharded_corpus(corpus, devices, dtype: Optional[torch.dtype] = None
     else:
         host = torch.from_numpy(np.ascontiguousarray(corpus, dtype=np.float32))
     n, d = host.shape[0], len(devices)
-    rows = max(1, -(-n // d))
-    host = torch.nn.functional.pad(host, (0, 0, 0, d * rows - n)).to(dtype)
-    return ShardedCorpus((host[i * rows:(i + 1) * rows].to(dev)
-                          for i, dev in enumerate(devices)), n)
+    world, rank = distributed.world_size(), distributed.rank()
+    block = -(-n // world)
+    host = host[rank * block:(rank + 1) * block]
+    rows = max(1, -(-block // d))
+    host = torch.nn.functional.pad(host, (0, 0, 0, d * rows - host.shape[0])).to(dtype)
+    staged = ShardedCorpus((host[i * rows:(i + 1) * rows].to(dev)
+                            for i, dev in enumerate(devices)), n, world, rank, block)
+    mine = torch.tensor([n, host.shape[1], d, int(dtype == torch.bfloat16)],
+                        device=devices[0])
+    every = all_gather_stack(mine)
+    if not bool((every == mine).all()):
+        raise ValueError("the ranks staged different corpora: (N, D, devices, bf16) "
+                         f"per rank {every.tolist()}")
+    return staged
 
 
 def _merge_on(device, cand_s, cand_i, k):
@@ -441,22 +492,79 @@ def _merge_on(device, cand_s, cand_i, k):
     return _order(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1), k)
 
 
+def _merge_shards(corpus: ShardedCorpus, cand_s, cand_i, k: int, m: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidate lists of this rank's shards (m rows each, global ids)
+    -> the k best per row on devices[0]: this rank's best min(k, block),
+    padded with (-inf, N) where it holds fewer rows, gathered from every
+    rank and merged, so every rank gets the same k (the padding never
+    enters them: the ranks together offer at least k real ones)."""
+    home = corpus.devices[0]
+    c = min(k, corpus.block)
+    s = torch.full((m, c), -math.inf, device=home)
+    i = torch.full((m, c), corpus.n, dtype=torch.int64, device=home)
+    if cand_s:
+        ls, li = _merge_on(home, cand_s, cand_i, c)
+        s[:, :ls.shape[1]], i[:, :ls.shape[1]] = ls, li
+    every_s, every_i = all_gather_stack(s), all_gather_stack(i)  # (W, m, c)
+    return _order(every_s.transpose(0, 1).reshape(m, -1),
+                  every_i.transpose(0, 1).reshape(m, -1), k)
+
+
+def _gather_rows(corpus: ShardedCorpus, scores, idx, ok, k: int):
+    """This rank's (rows of its block, k) ring results -> the (N, k) results
+    of every rank, the same on every rank (each rank's rows padded to
+    `block` for the gather, the padding dropped after it)."""
+    home, b = corpus.devices[0], corpus.block
+    s = torch.full((b, k), -math.inf, device=home)
+    i = torch.zeros((b, k), dtype=torch.int64, device=home)
+    o = torch.ones(b, dtype=torch.uint8, device=home)
+    m = scores.shape[0]
+    s[:m], i[:m], o[:m] = scores, idx, ok.to(torch.uint8)
+    every = [all_gather_stack(x) for x in (s, i, o)]
+    counts = [corpus.block_rows(r) for r in range(corpus.world)]
+    s, i, o = (torch.cat([x[r, :c] for r, c in enumerate(counts)]) for x in every)
+    return s, i, o.bool()
+
+
+def _corpus_rows(corpus: ShardedCorpus, rows: torch.Tensor) -> torch.Tensor:
+    """The corpus rows at global ids `rows` (the same on every rank), f32 on
+    devices[0] of every rank: each rank fills the rows it holds, and the
+    ranks' copies are gathered and summed (exact: every other term is
+    zero)."""
+    home = corpus.devices[0]
+    out = torch.zeros((len(rows), corpus.shards[0].shape[1]), device=home)
+    for i, shard in enumerate(corpus.shards):
+        start = corpus.offset(i)
+        sel = ((rows >= start) & (rows < start + len(corpus.valid(i)))).nonzero()[:, 0]
+        if len(sel):
+            out[sel] = shard[(rows[sel] - start).to(shard.device)].float().to(home)
+    return all_gather_stack(out).sum(dim=0)
+
+
 def sharded_topk_search(queries, corpus, k: int, devices=None,
                         exact_above: Optional[float] = None, method: str = "auto",
                         recall_target: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Corpus-sharded query-vs-corpus k-NN (JAX sharded_topk_search): the
     corpus is row-sharded over `devices` (all of the card's platform when
-    None), the (M, D) queries go to every shard. Each shard finds its
-    min(k, rows) best with global column ids (its offset added), and one
-    merge on devices[0] keeps the k best. Returns (scores (M, k), indices
-    (M, k)) on devices[0], equal to `topk_search(method="exact")`.
+    None; under a process group, the rank's card), the (M, D) queries go to
+    every shard. Each shard finds its min(k, rows) best with global column
+    ids (its offset added), and one merge on devices[0] keeps the k best.
+    Returns (scores (M, k), indices (M, k)) on devices[0], equal to
+    `topk_search(method="exact")`.
 
     `corpus` is an (N, D) array or tensor, staged by `stage_sharded_corpus`,
     or a `ShardedCorpus` from it (then `devices` is its own). The methods
     are `topk_search`'s; a certified row is kept only if every shard
     certified it, and the other rows are repaired by an exact pass over the
-    same staged shards."""
+    same staged shards.
+
+    Under a process group of W > 1 ranks every rank passes the same queries
+    and the same corpus (or its own `ShardedCorpus` of it); each searches
+    its block, the ranks' candidate lists are gathered and merged, a row is
+    certified only if every rank certified it (one all_reduce), the repairs
+    go through the same merge, and every rank returns the same result."""
     global repaired_rows
     if not isinstance(corpus, ShardedCorpus):
         corpus = stage_sharded_corpus(corpus, devices)
@@ -464,35 +572,31 @@ def sharded_topk_search(queries, corpus, k: int, devices=None,
         queries = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32))
     method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
     home = corpus.devices[0]
-    if queries.shape[0] == 0:
+    m = queries.shape[0]
+    if m == 0:
         return (torch.zeros((0, k), dtype=torch.float32, device=home),
                 torch.zeros((0, k), dtype=torch.int64, device=home))
-    problems = []
-    cand_s, cand_i, oks = [], [], []
     with full_fp32():
         # every shard's work is launched before any result is merged, so
         # shards on different cards overlap
-        for i, dev in enumerate(corpus.devices):
-            shard = corpus.valid(i)
-            if not len(shard):
-                continue
-            p = _Problem(queries.to(dev), shard)
-            problems.append((p, i * corpus.rows))
-            s, j, ok = _first_stage(p, min(k, len(shard)), method, recall_target,
-                                    exact_above)
-            cand_s.append(s)
-            cand_i.append(j + i * corpus.rows)
-            oks.append(ok.to(home))
-        scores, idx = _merge_on(home, cand_s, cand_i, k)
-        bad = (~torch.stack(oks).all(dim=0)).nonzero()[:, 0]
+        problems = [(_Problem(queries.to(dev), corpus.valid(i)), corpus.offset(i))
+                    for i, dev in enumerate(corpus.devices) if len(corpus.valid(i))]
+        stages = [_first_stage(p, min(k, p.corpus.shape[0]), method, recall_target,
+                               exact_above) for p, _ in problems]
+        scores, idx = _merge_shards(corpus, [s for s, _, _ in stages],
+                                    [j + off for (_, j, _), (_, off) in zip(stages, problems)],
+                                    k, m)
+        ok = torch.ones(m, dtype=torch.bool, device=home)
+        for _, _, shard_ok in stages:
+            ok &= shard_ok.to(home)
+        bad = (~all_ranks_true(ok)).nonzero()[:, 0]
         if len(bad):
             repaired_rows += len(bad)
-            fix_s, fix_i = [], []
-            for p, offset in problems:
-                s, j = _exact(p.rows(bad.to(p.queries.device)), min(k, p.corpus.shape[0]))
-                fix_s.append(s)
-                fix_i.append(j + offset)
-            scores[bad], idx[bad] = _merge_on(home, fix_s, fix_i, k)
+            fixes = [_exact(p.rows(bad.to(p.queries.device)), min(k, p.corpus.shape[0]))
+                     for p, _ in problems]
+            scores[bad], idx[bad] = _merge_shards(
+                corpus, [s for s, _ in fixes],
+                [j + off for (_, j), (_, off) in zip(fixes, problems)], k, len(bad))
     return scores, idx
 
 
@@ -504,10 +608,14 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
     embeddings are row-sharded over `devices`, each shard's rows are both
     its queries and the corpus tile it sends round the ring. At step 0 each
     shard searches its own tile, which seeds its running top-k; at step t
-    every tile moves to the next device in the list (a device-to-device
-    copy) and each shard merges its search of the tile it now holds, the
-    one that started t places before it. After d steps every shard has met
-    every tile. Returns (scores (N, k), indices (N, k)) on devices[0].
+    every tile moves to the next shard of the ring (a device-to-device
+    copy; under a process group the last shard of each rank sends to the
+    first shard of the next rank, and the first receives from the previous
+    rank) and each shard merges its search of the tile it now holds, the
+    one that started t places before it. After one step per shard of the
+    ring every shard has met every tile. Returns (scores (N, k), indices
+    (N, k)) on devices[0]; under a group every rank's rows are gathered, so
+    every rank returns the same (N, k).
 
     Certified methods: a row is certified only if every tile certified it;
     the others are repaired by an exact `sharded_topk_search` over the same
@@ -516,21 +624,24 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
     corpus = embeddings if isinstance(embeddings, ShardedCorpus) else \
         stage_sharded_corpus(embeddings, devices)
     method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
-    d, rows, home = len(corpus.shards), corpus.rows, corpus.devices[0]
+    d, home = len(corpus.shards), corpus.devices[0]
+    ring = corpus.world * d
+    mine = [corpus.rank * d + i for i in range(d)]  # this rank's shards in the ring
     queries = [corpus.valid(i) for i in range(d)]
-    tiles = [(i, corpus.valid(i)) for i in range(d)]  # (origin shard, rows)
+    tiles = list(corpus.shards)  # padded, so the tile a rank sends has one shape
     carry = [None] * d
     with full_fp32():
-        for step in range(d):
-            if step:  # rotate: device i receives the tile device i-1 held
-                tiles = [(o, t.to(corpus.devices[i]))
-                         for i, (o, t) in enumerate(tiles[-1:] + tiles[:-1])]
-            for i, (origin, tile) in enumerate(tiles):
-                if not len(queries[i]) or not len(tile):
+        for step in range(ring):
+            if step:  # rotate: shard i receives the tile shard i-1 of the ring held
+                tiles = [t.to(corpus.devices[i])
+                         for i, t in enumerate([ring_shift(tiles[-1])] + tiles[:-1])]
+            for i, tile in enumerate(tiles):
+                start, count = corpus.span((mine[i] - step) % ring)  # the tile's origin
+                if not len(queries[i]) or not count:
                     continue
-                s, j, ok = _first_stage(_Problem(queries[i], tile), min(k, len(tile)),
+                s, j, ok = _first_stage(_Problem(queries[i], tile[:count]), min(k, count),
                                         method, recall_target, exact_above)
-                j = j + origin * rows
+                j = j + start
                 if carry[i] is None:
                     carry[i] = (s, j, ok)
                 else:
@@ -539,14 +650,19 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
                                     min(k, cs.shape[1] + s.shape[1]))
                     carry[i] = (cs, cj, cok & ok)
         parts = [c for c in carry if c is not None]
-        scores = torch.cat([s.to(home) for s, _, _ in parts])
-        idx = torch.cat([j.to(home) for _, j, _ in parts])
-        ok = torch.cat([o.to(home) for _, _, o in parts])
+        if parts:
+            scores = torch.cat([s.to(home) for s, _, _ in parts])
+            idx = torch.cat([j.to(home) for _, j, _ in parts])
+            ok = torch.cat([o.to(home) for _, _, o in parts])
+        else:  # a rank past the end of the corpus
+            scores = torch.zeros((0, k), device=home)
+            idx = torch.zeros((0, k), dtype=torch.int64, device=home)
+            ok = torch.ones(0, dtype=torch.bool, device=home)
+        scores, idx, ok = _gather_rows(corpus, scores, idx, ok, k)
     bad = (~ok).nonzero()[:, 0]
     if len(bad):
         repaired_rows += len(bad)
-        fix_s, fix_i = sharded_topk_search(
-            torch.cat([q.cpu() for q in queries])[bad.cpu()].float(), corpus, k,
-            method="exact")
+        fix_s, fix_i = sharded_topk_search(_corpus_rows(corpus, bad), corpus, k,
+                                           method="exact")
         scores[bad], idx[bad] = fix_s.to(home), fix_i.to(home)
     return scores, idx

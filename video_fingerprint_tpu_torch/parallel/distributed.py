@@ -24,15 +24,28 @@ broadcasts of the run-dir name and of the initial weights. NCCL runs them
 on CUDA tensors and gloo on CPU tensors; gloo also takes CUDA tensors for
 all_reduce and broadcast (staged through the host), which is how two ranks
 share one card in chip_smoke.py: NCCL refuses two ranks on one GPU.
+
+The corpus-sharded searches across ranks (ops/topk.py, the counterpart of
+JAX's multi-process mesh and `_replicate_for_host`) use three more:
+`all_gather_stack` (candidate lists and result rows; integers stay
+integers), `all_ranks_true` (the certificate's AND) and `ring_shift` (the
+ring's tile to the next rank). Under NCCL they run on the card; under gloo
+a CUDA tensor goes through the host, since gloo's gather and point-to-point
+take CPU tensors only. `collective_seconds` sums their host time since
+import: under gloo the collective with its host copies and the wait for
+the other ranks; under NCCL only the enqueue.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+collective_seconds = 0.0
 
 
 def maybe_initialize_distributed(device: str | torch.device = "cuda",
@@ -43,16 +56,19 @@ def maybe_initialize_distributed(device: str | torch.device = "cuda",
     environment): WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT.
     Without WORLD_SIZE this is a no-op that returns (0, 1). The backend is
     nccl for cuda and gloo for cpu unless `backend` names one; on cuda the
-    process binds cuda:LOCAL_RANK first. A group already joined is kept.
+    process binds cuda:LOCAL_RANK first, or the card `device` names
+    ("cuda:0": gloo ranks that share one card). A group already joined is
+    kept.
     """
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if "WORLD_SIZE" not in os.environ:
         return 0, 1
-    kind = torch.device(device).type
-    if kind == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    dist.init_process_group(backend or ("nccl" if kind == "cuda" else "gloo"),
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return dist.get_rank(), dist.get_world_size()
@@ -68,7 +84,10 @@ def rank() -> int:
 
 def is_main_process() -> bool:
     """Single-writer rule: the run-dir files, TensorBoard and the .ckpt
-    files are written by rank 0 only."""
+    files are written by rank 0 only. Work under this test must not search:
+    with more than one rank, FingerprintIndex.search and the scanner's
+    top-k duplicate search are collectives (ops/topk.py), which every rank
+    must call, so a call on rank 0 alone waits for the others forever."""
     return rank() == 0
 
 
@@ -136,6 +155,81 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     buf[r * b:(r + 1) * b] = x
     dist.all_reduce(buf)
     return buf.to(x.dtype)
+
+
+def _on_backend(x: torch.Tensor) -> torch.Tensor:
+    """x where the group's backend takes it: a contiguous CUDA tensor moves
+    to the host under gloo (whose gather and point-to-point take CPU
+    tensors only); anything else stays."""
+    x = x.contiguous()
+    return x.cpu() if x.is_cuda and dist.get_backend() == "gloo" else x
+
+
+def _timed(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x placed for the backend), returned on x's device, its host time
+    added to `collective_seconds`. Under gloo a CUDA tensor's copy to the
+    host waits for the card's queued work; the wait is taken before the
+    clock starts, so the clock times the collective (and the wait for the
+    other ranks to reach it)."""
+    global collective_seconds
+    if x.is_cuda and dist.get_backend() == "gloo":
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = fn(_on_backend(x)).to(x.device)
+    collective_seconds += time.perf_counter() - t0
+    return out
+
+
+def all_gather_stack(x: torch.Tensor) -> torch.Tensor:
+    """x (the same shape and dtype on every rank) -> (world, *x.shape), rank
+    r's x at [r], the same on every rank. Integer tensors are gathered as
+    integers, so indices stay exact at any size."""
+    w = world_size()
+    if w == 1:
+        return x[None]
+
+    def gather(src):
+        if dist.get_backend() == "nccl":
+            out = src.new_empty((w,) + tuple(src.shape))
+            dist.all_gather_into_tensor(out, src)
+            return out
+        parts = [torch.empty_like(src) for _ in range(w)]
+        dist.all_gather(parts, src)
+        return torch.stack(parts)
+
+    return _timed(gather, x)
+
+
+def all_ranks_true(ok: torch.Tensor) -> torch.Tensor:
+    """A bool vector (the same length on every rank) -> its AND over the
+    ranks, by one all_reduce of the count of False."""
+    if world_size() == 1:
+        return ok
+
+    def reduce(src):
+        dist.all_reduce(src)
+        return src
+
+    return _timed(reduce, (~ok).to(torch.int32)) == 0
+
+
+def ring_shift(x: torch.Tensor) -> torch.Tensor:
+    """Send x to rank (r + 1) mod W and return what rank (r - 1) mod W sent
+    (every rank passes the same shape and dtype): one step of a ring."""
+    w = world_size()
+    if w == 1:
+        return x
+    r = rank()
+
+    def shift(src):
+        out = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, (r + 1) % w),
+               dist.P2POp(dist.irecv, out, (r - 1) % w)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    return _timed(shift, x)
 
 
 def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:

@@ -5,6 +5,9 @@ of torch devices, one shard per entry. The list may repeat a device: two or
 four shards on one card, or eight on the CPU, run the same code as one
 shard per card (the CPU tests and chip_smoke.py use that). Every "all
 devices of the platform" in the port reads `platform_devices`.
+
+Under a process group of several ranks a list is one rank's devices: the
+rank's own card by default (`as_devices`), never another rank's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from video_fingerprint_tpu_torch.parallel.distributed import world_size
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -31,8 +36,14 @@ def platform_devices(device: str | torch.device = "cuda") -> List[torch.device]:
 
 def as_devices(devices: Optional[Sequence], default: str | torch.device = "cuda"
                ) -> List[torch.device]:
-    """`devices` as torch devices, or every device of `default`'s platform
-    (which raises for cuda without a card); "cuda" names the current card."""
+    """The devices this process shards over: `devices` as torch devices when
+    given; else, under a process group of more than one rank, the rank's own
+    device (`default`, a bare "cuda" naming the card the rank is bound to,
+    which maybe_initialize_distributed sets); else every device of
+    `default`'s platform (which raises for cuda without a card). "cuda"
+    names the current card."""
+    if devices is None and world_size() > 1:
+        return [_indexed(torch.device(default))]
     out = (platform_devices(default) if devices is None
            else [_indexed(torch.device(d)) for d in devices])
     if not out:

@@ -316,7 +316,7 @@ def load_any(path: Path | str) -> Tuple[Dict, Dict[str, Any]]:
     """Load a `.ckpt` (msgpack) or a reference `.pth`.
 
     Returns (variables={'params', 'batch_stats'}, config). Orbax checkpoint
-    directories are not read by the port.
+    directories are refused (`refuse_orbax`).
     """
     path = Path(path)
     refuse_orbax(path)
@@ -327,10 +327,17 @@ def load_any(path: Path | str) -> Tuple[Dict, Dict[str, Any]]:
     return {"params": model["params"], "batch_stats": model["batch_stats"]}, payload["config"]
 
 
+ORBAX_REFUSAL = (
+    "Orbax checkpoint directories are not ported and cannot be: they are read and "
+    "written only through orbax.checkpoint, which imports jax, and the port never "
+    "imports jax. Convert one with the JAX package (training/checkpoint.py: load_any "
+    "on the directory, then save_checkpoint) to a .ckpt, which the port reads")
+
+
 def refuse_orbax(path: Path) -> None:
+    """Raise for an Orbax checkpoint directory (ORBAX_REFUSAL says why)."""
     if path.is_dir():
-        raise NotImplementedError(f"{path} is a directory: Orbax checkpoints are "
-                                  "not read by the port; use a .ckpt or .pth")
+        raise NotImplementedError(f"{path} is a directory. {ORBAX_REFUSAL}")
 
 
 def _looks_like_torch(path: Path) -> bool:
