@@ -11,9 +11,11 @@ Phases, each of which raises (exit code 1) on any failure:
   2. hold the attention kernel (csrc/attention.cu) against its plain PyTorch
      version at the scan's shapes (64 videos x 8 heads, D = 32, every bucket
      length T and T = 1000, float32 and bfloat16, ragged rows, a row whose
-     first 64 keys are masked, fully masked rows), and time it beside the
-     plain version and F.scaled_dot_product_attention: device time from CUDA
-     graph replay, and the time per call through the Python wrapper;
+     first 64 keys are masked, fully masked rows; and the benchmark
+     headline's 512 videos x 8 heads at T = 128 in bfloat16), and time it
+     beside the plain version and F.scaled_dot_product_attention: device
+     time from CUDA graph replay, and the time per call through the Python
+     wrapper;
   3. the scan at full width: a seeded attention model written as a
      reference-layout .pth, FingerprintScanner(device="cuda", batch_size=64)
      fed ~200 seeded uint8 64x64 clips covering every bucket with planted
@@ -116,7 +118,20 @@ Phases, each of which raises (exit code 1) on any failure:
      bound; FingerprintIndex.search across the ranks equal to one
      process's; tools/multiproc_dedup.py under `python -m
      torch.distributed.run --standalone` with 2 gloo ranks on cuda:0 and
-     with 1 rank on NCCL. A rank that fails or hangs fails the phase.
+     with 1 rank on NCCL. A rank that fails or hangs fails the phase;
+ 13. the benchmark program (`python -m video_fingerprint_tpu_torch.tools.bench`,
+     a budget of BENCH_BUDGET seconds): its legs' subprocesses (the
+     reference baseline, the headline at B = 512, T = 128 in bf16 by CUDA
+     graph replay, pipelined, per batch and streaming, training steps/s,
+     the e2e scan of 60 synthetic mp4s with decode, the 10^5 dedup search
+     per top-k method with --planted --verify) and its last line, which
+     must carry the headline's metric, unit, regime, a rate > 0, an MFU in
+     (0, 1], K1 launched 4 times per forward and per captured graph, every
+     later leg's keys or its name in skipped_legs, no failed leg, every
+     planted e2e copy grouped with its original and every dedup method
+     verified; then the headline's first 8 bf16 embeddings (saved by the
+     leg with their frames) against the same seeded weights' f32 forward
+     on the card (cosine >= 0.999, K1 launched 4 times).
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -165,6 +180,7 @@ HEADS = 8
 HEAD_DIM = 32
 BUCKETS = (32, 64, 128, 256, 500)
 ATTENTION_T = BUCKETS + (1000,)  # and a length past 512 keys, where a checkpoint may go
+HEADLINE_BATCH = 512  # the benchmark headline's batch (tools/bench_headline.py)
 # Published H100 SXM peaks (NVIDIA data sheet, dense) at a 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -248,7 +264,9 @@ def _device_kernels(torch, fn):
 
 
 def phase_attention(torch):
-    """Kernel vs plain version at every bucket T and T = 1000, f32 and bf16."""
+    """Kernel vs plain version at every bucket T and T = 1000, f32 and bf16,
+    at the scan's B = 64; and at the benchmark headline's B = 512, T = 128
+    in bf16 (its 4,096 instances)."""
     import torch.nn.functional as F
 
     from video_fingerprint_tpu_torch.ops import attention as attn
@@ -257,67 +275,68 @@ def phase_attention(torch):
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = [(dtype, T, BATCH) for dtype in (torch.float32, torch.bfloat16)
+             for T in ATTENTION_T] + [(torch.bfloat16, 128, HEADLINE_BATCH)]
+    for dtype, T, batch in cases:
         dname = str(dtype).split(".")[-1]
-        for T in ATTENTION_T:
-            shape = (BATCH, HEADS, T, HEAD_DIM)
-            q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
-                       for _ in range(3))
-            lengths = torch.randint(1, T + 1, (BATCH,), device="cuda", generator=g)
-            lengths[0] = T
-            mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
-            if T > 64:  # the first key tile wholly masked, later keys valid
-                mask[1] = torch.arange(T, device="cuda") >= 64
-            mask[-1] = False  # one instance with every key masked
-            bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
+        shape = (batch, HEADS, T, HEAD_DIM)
+        q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+                   for _ in range(3))
+        lengths = torch.randint(1, T + 1, (batch,), device="cuda", generator=g)
+        lengths[0] = T
+        mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+        if T > 64:  # the first key tile wholly masked, later keys valid
+            mask[1] = torch.arange(T, device="cuda") >= 64
+        mask[-1] = False  # one instance with every key masked
+        bias = attn._key_bias(mask, (batch, T), q.device)[:, None, :]
 
-            out = attn.multihead_attention(q, k, v, mask)
-            torch.cuda.synchronize()
+        out = attn.multihead_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        with full_fp32():
+            plain = attn._attention_torch(q, k, v, bias)
+        err = (out.float() - plain.float()).abs().max().item()
+        require(bool(torch.isfinite(out).all()), f"{dname} B={batch} T={T}: non-finite output")
+        require(err <= TOLERANCE[dname], f"{dname} B={batch} T={T}: max abs err {err}")
+        # a fully masked row gets uniform weights: the mean of v
+        uniform = v[-1].float().mean(dim=1, keepdim=True).expand(HEADS, T, HEAD_DIM)
+        err_uniform = (out[-1].float() - uniform).abs().max().item()
+        require(err_uniform <= TOLERANCE[dname],
+                f"{dname} B={batch} T={T}: fully masked row err {err_uniform}")
+        err_f64 = None
+        if dtype == torch.float32:  # an oracle independent of both
+            s = q.double() @ k.double().transpose(-1, -2) / HEAD_DIM ** 0.5
+            s = s + bias.double()[:, :, None, :]
+            ref = torch.softmax(s, dim=-1) @ v.double()
+            err_f64 = (out.double() - ref).abs().max().item()
+            require(err_f64 <= TOLERANCE[dname], f"T={T}: err vs f64 {err_f64}")
+            del s, ref
+
+        err_leading = (out[1].float() - plain[1].float()).abs().max().item()
+        del plain
+
+        kernel = lambda: attn.multihead_attention(q, k, v, mask)
+        kernel_ms = graph_ms(kernel)
+        kernel_call_ms = cuda_ms(kernel)
+        lib_mask = bias[:, :, None, :].to(dtype)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask)
+        with full_fp32():
+            plain_ms = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
+            library_ms = graph_ms(library)
+            library_call_ms = cuda_ms(library)
+        bound_ms, bound_by = attention_bound_ms(batch * HEADS, T, dname,
+                                                mask.numel())
+        row = {"phase": "attention", "dtype": dname, "T": T, "BH": batch * HEADS,
+               "max_abs_err": err, "err_uniform_row": err_uniform,
+               "err_leading_masked_row": err_leading, "err_vs_f64": err_f64,
+               "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_call_ms": library_call_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if T == 128 and batch == BATCH:  # which kernels the yardstick runs
             with full_fp32():
-                plain = attn._attention_torch(q, k, v, bias)
-            err = (out.float() - plain.float()).abs().max().item()
-            require(bool(torch.isfinite(out).all()), f"{dname} T={T}: non-finite output")
-            require(err <= TOLERANCE[dname], f"{dname} T={T}: max abs err {err}")
-            # a fully masked row gets uniform weights: the mean of v
-            uniform = v[-1].float().mean(dim=1, keepdim=True).expand(HEADS, T, HEAD_DIM)
-            err_uniform = (out[-1].float() - uniform).abs().max().item()
-            require(err_uniform <= TOLERANCE[dname],
-                    f"{dname} T={T}: fully masked row err {err_uniform}")
-            err_f64 = None
-            if dtype == torch.float32:  # an oracle independent of both
-                s = q.double() @ k.double().transpose(-1, -2) / HEAD_DIM ** 0.5
-                s = s + bias.double()[:, :, None, :]
-                ref = torch.softmax(s, dim=-1) @ v.double()
-                err_f64 = (out.double() - ref).abs().max().item()
-                require(err_f64 <= TOLERANCE[dname], f"T={T}: err vs f64 {err_f64}")
-                del s, ref
-
-            err_leading = (out[1].float() - plain[1].float()).abs().max().item()
-            del plain
-
-            kernel = lambda: attn.multihead_attention(q, k, v, mask)
-            kernel_ms = graph_ms(kernel)
-            kernel_call_ms = cuda_ms(kernel)
-            lib_mask = bias[:, :, None, :].to(dtype)
-            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask)
-            with full_fp32():
-                plain_ms = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
-                library_ms = graph_ms(library)
-                library_call_ms = cuda_ms(library)
-            bound_ms, bound_by = attention_bound_ms(BATCH * HEADS, T, dname,
-                                                    mask.numel())
-            row = {"phase": "attention", "dtype": dname, "T": T, "BH": BATCH * HEADS,
-                   "max_abs_err": err, "err_uniform_row": err_uniform,
-                   "err_leading_masked_row": err_leading, "err_vs_f64": err_f64,
-                   "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library_call_ms": library_call_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
-            if T == 128:  # which kernels the yardstick runs (f32: tensor cores?)
-                with full_fp32():
-                    row["library_kernels"] = _device_kernels(torch, library)
-            emit(row)
-            results[(dname, T)] = row
+                row["library_kernels"] = _device_kernels(torch, library)
+        emit(row)
+        results[(dname, T) if batch == BATCH else (dname, T, batch)] = row
     return results
 
 
@@ -2712,8 +2731,85 @@ def phase_multiproc(torch, workdir: Path, smi: str):
           "seconds": time.perf_counter() - t0})
 
 
+BENCH_BUDGET = 330  # seconds for the benchmark program's legs in phase `bench`
+BENCH_COS = 0.999   # bf16 headline embeddings against the f32 forward
+HEADLINE_KEYS = ("graph_vps", "pipelined_vps", "sync_per_batch_vps", "streaming_vps")
+
+
+def phase_bench(torch, workdir: Path, smi: str):
+    """The benchmark program (tools/bench.py) end to end: its last line
+    carries the headline (graph replay, MFU in (0, 1]) and every later
+    leg's keys; no leg failed and none was skipped. The headline's first
+    bf16 embeddings against the same seeded weights' f32 forward on the
+    card (K1 launched 4 times per forward, counted in this process and by
+    the leg), every dedup method verified, every planted e2e copy found
+    and no other videos grouped."""
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.tools import bench, bench_headline
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+
+    npz = workdir / "headline_embeddings.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_fingerprint_tpu_torch.tools.bench",
+         "--budget", str(BENCH_BUDGET), "--save_embeddings", str(npz)],
+        capture_output=True, text=True, timeout=BENCH_BUDGET + 60,
+        cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(bool(lines), f"bench printed no line (rc {proc.returncode}): "
+                         f"{proc.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    require(proc.returncode == 0 and not line["failed_legs"],
+            f"bench rc {proc.returncode}, failed legs {line['failed_legs']}: "
+            f"{proc.stderr[-2000:]}")
+    require(line["metric"] == bench.METRIC and line["unit"] == "videos/sec/chip"
+            and line["regime"] == "cuda graph replay" and line["value"] > 0,
+            f"headline line {line}")
+    require(0 < line["mfu_vs_h100_bf16_peak"] <= 1, f"MFU {line['mfu_vs_h100_bf16_peak']}")
+    require(line["k1_launches_per_forward"] == 4
+            and line["k1_launches_in_capture"] == 4 * bench_headline.N_BATCHES,
+            f"K1 launches in the headline: {line['k1_launches_per_forward']} per forward, "
+            f"{line['k1_launches_in_capture']} in the graphs")
+    require(line["skipped_legs"] == [], f"legs skipped: {line['skipped_legs']}")
+    for key in ("train_steps_per_sec_b64_t64_bf16_dispatched", "e2e_scan_vps_with_decode"):
+        require(key in line, f"no {key} in the line")
+    require(line["e2e_planted_pairs"] > 0
+            and line["e2e_planted_pairs_found"] == line["e2e_planted_pairs"],
+            f"e2e found {line['e2e_planted_pairs_found']} of "
+            f"{line['e2e_planted_pairs']} planted copies")
+    require(line["e2e_duplicate_groups"] == line["e2e_planted_pairs"]
+            and set(line["e2e_group_sizes"]) == {2},
+            f"e2e groups {line['e2e_group_sizes']}: distinct videos grouped")
+    for name, _, _ in bench.DEDUP_METHODS:
+        require(bool(line.get(f"dedup_verified_{name}")), f"dedup {name} not verified")
+
+    saved = np.load(npz)
+    frames = torch.from_numpy(saved["frames"]).to(CARD)
+    n, T = frames.shape[:2]
+    model = bench_headline.fused_model(int(saved["seed"]), torch.device(CARD), torch.float32)
+    _zero_launches()
+    with torch.no_grad(), full_fp32():
+        ref = model.forward_flat(frames.reshape((n * T,) + tuple(frames.shape[2:])), n)
+    torch.cuda.synchronize()
+    launches = _launches()
+    require(launches["attention"] == 4, f"f32 forward launched K1 {launches} times")
+    ref = ref.cpu().numpy()
+    emb = saved["embeddings"]
+    cos = np.sum(emb * ref, axis=1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+    require(float(cos.min()) >= BENCH_COS, f"bf16 headline vs f32: cosine {cos}")
+    sims = ref @ ref.T
+    distinct = float(sims[~np.eye(n, dtype=bool)].max())
+    require(distinct < BENCH_COS, f"the headline's clips are not distinct: {distinct}")
+    row = {"phase": "bench", "smi": smi, "seconds": seconds, "rc": proc.returncode,
+           "bf16_vs_f32_cos_min": float(cos.min()), "distinct_max_cos": distinct,
+           "f32_check_launches": launches, "line": line}
+    emit(row)
+    return row
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native", "multigpu", "multiproc")
+          "native", "multigpu", "multiproc", "bench")
 
 
 def _settle(torch) -> None:
@@ -2743,17 +2839,20 @@ def main(argv=None) -> int:
     smi = phase_info(torch)
     phase_build()
     run = [p for p in PHASES if p in phases]
-    att = phase_attention(torch) if "attention" in run else None
+    phase_seconds = {}
     with tempfile.TemporaryDirectory(prefix="vfp_chip_smoke_") as tmp:
         work = Path(tmp)
         model_path, model3d_path = work / "model.pth", work / "model3d.pth"
         for name in run:
             _settle(torch)
+            t_phase = time.perf_counter()
             if name in ("cli", "convblock", "index", "native") and not model_path.exists():
                 _write_model(torch, model_path, np.random.default_rng(SEED))  # as phase_scan
             if name == "native" and not model3d_path.exists():
                 _write_model_3d(torch, model3d_path, np.random.default_rng(SEED + 3))
-            if name == "scan":
+            if name == "attention":
+                att = phase_attention(torch)
+            elif name == "scan":
                 launches, _ = phase_scan(torch, work)
             elif name == "cli":
                 phase_cli(torch, work, model_path)
@@ -2773,7 +2872,11 @@ def main(argv=None) -> int:
                 phase_multigpu(torch, work, smi)
             elif name == "multiproc":
                 phase_multiproc(torch, work, smi)
-    emit({"phase": "done", "phases": run, "seconds": time.perf_counter() - t_start})
+            elif name == "bench":
+                phase_bench(torch, work, smi)
+            phase_seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "done", "phases": run, "phase_seconds": phase_seconds,
+          "seconds": time.perf_counter() - t_start})
     if run != list(PHASES):
         return 0
     main_case = att[("float32", 128)]

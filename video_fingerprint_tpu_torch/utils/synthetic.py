@@ -1,5 +1,6 @@
-"""Synthetic test videos: a copy of make_corpus from
-video_fingerprint_tpu/utils/synthetic.py, with cv2 imported where it is used.
+"""Synthetic test videos: a copy of video_fingerprint_tpu/utils/synthetic.py
+(make_corpus, and the near-duplicate families of make_hard_corpus), with
+cv2 imported where it is used.
 
 Procedurally generated mp4s stand in for a dataset download, so a scan can
 be driven end to end on any machine with OpenCV.
@@ -48,6 +49,36 @@ def write_video(path: Path, frames: np.ndarray, fps: float = 25.0) -> Path:
         writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
     writer.release()
     return path
+
+
+def synthetic_frames_near(seed: int, base_seed: int, num_frames: int,
+                          height: int = 96, width: int = 128,
+                          mix: float = 0.25) -> np.ndarray:
+    """A near-duplicate distractor of the `base_seed` video: (1 - mix) of
+    its pixels from the base pattern, `mix` from a pattern of its own, so
+    distinct video ids built on one base are hard negatives."""
+    base = synthetic_frames(base_seed, num_frames, height, width).astype(np.float32)
+    uniq = synthetic_frames(seed, num_frames, height, width).astype(np.float32)
+    return np.clip((1 - mix) * base + mix * uniq, 0, 255).astype(np.uint8)
+
+
+def make_hard_corpus(directory: Path, num_families: int = 6, per_family: int = 4,
+                     num_frames: int = 48, mix: float = 0.25,
+                     seed0: int = 0) -> list[Path]:
+    """`num_families` base patterns, each spawning `per_family` distinct
+    videos that share (1 - mix) of their content; every file is its own
+    video id, so family siblings are hard cross-video negatives."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for f in range(num_families):
+        base_seed = seed0 + 1000 + f
+        for j in range(per_family):
+            paths.append(write_video(
+                directory / f"family{f}_v{j}.mp4",
+                synthetic_frames_near(seed0 + f * per_family + j, base_seed,
+                                      num_frames, mix=mix)))
+    return paths
 
 
 def make_corpus(directory: Path, num_unique: int = 4, num_frames: int = 48,
