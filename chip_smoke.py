@@ -15,7 +15,10 @@ Phases, each of which raises (exit code 1) on any failure:
      headline's 512 videos x 8 heads at T = 128 in bfloat16), and time it
      beside the plain version and F.scaled_dot_product_attention: device
      time from CUDA graph replay, and the time per call through the Python
-     wrapper;
+     wrapper; then the wide kernel at head dims 96, 128, 160 and 256, f32
+     and bf16, T = 1, 65, 128 and 500 (ragged rows, a first key tile
+     masked, a fully masked row), each launched once and held against the
+     plain version, timed at T = 128 beside SDPA and the bound;
   3. the scan at full width: a seeded attention model written as a
      reference-layout .pth, FingerprintScanner(device="cuda", batch_size=64)
      fed ~200 seeded uint8 64x64 clips covering every bucket with planted
@@ -69,13 +72,15 @@ Phases, each of which raises (exit code 1) on any failure:
      1e-5, color by the share of elements within 1e-5 (>= 99.99 %); the
      augmented pair batch's ms on the card; train steps/s with
      device_augment for attention f32 and bf16 (B = 64, T = 64) and 3D f32
-     (B = 128 x 128); loader clips/s at the train CLI's defaults on 34
+     (B = 128 x 128); loader clips/s at the train CLI's defaults on 8
      640x360 x 300-frame mp4s, host against device augment mode, 4
      workers; the train CLI with --device_augment for an epoch (artifacts,
      K1 launched in validation only);
  10. the native host paths (utils/native.py, utils/native_decode.py, g++
      builds of native/*.cc): whether each library built, and for one that
-     did not, the scanner's message; on the same 34 mp4s, host
+     did not, the scanner's message; one worker's decode frames/s
+     (tools/bench_decode_percore.py: cv2, and vfp_decode where it built,
+     on 96x128 mp4s); on the 34 mp4s phase 9 writes, host
      decode videos/s of the scan's producer (4 workers) with cv2 and with
      each native path that built, and the attention scan on the card in
      each mode (--native_decode stages uint8, --native_preprocess float32)
@@ -131,7 +136,19 @@ Phases, each of which raises (exit code 1) on any failure:
      planted e2e copy grouped with its original and every dedup method
      verified; then the headline's first 8 bf16 embeddings (saved by the
      leg with their frames) against the same seeded weights' f32 forward
-     on the card (cosine >= 0.999, K1 launched 4 times).
+     on the card (cosine >= 0.999, K1 launched 4 times);
+ 14. the stage profile (tools/profile_extraction.py) at the headline's
+     shape: the full / spatial / temporal split per configuration, the
+     cumulative legs of the bf16 forward (convert, each conv, spatial,
+     full) with cudnn.benchmark off and on beside their byte and operation
+     bounds, the conv0 probes (widened conv0, s2d in f32 and bf16), the top
+     device kernels of one forward by name; the stages chain to
+     forward_flat and the full leg lands within 10 % of
+     headline_forward_ms timed in the same process;
+ 15. the graft entry points (tools/graft_entry.py): entry()'s forward on the card
+     (K1 launched 4 times, against the CPU forward of the same variables),
+     then dryrun_multichip(4) over cuda:0 four times (gloo ranks for the
+     data-parallel steps), every program against its one-device oracle.
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -181,6 +198,8 @@ HEAD_DIM = 32
 BUCKETS = (32, 64, 128, 256, 500)
 ATTENTION_T = BUCKETS + (1000,)  # and a length past 512 keys, where a checkpoint may go
 HEADLINE_BATCH = 512  # the benchmark headline's batch (tools/bench_headline.py)
+WIDE_HEAD_DIMS = (96, 128, 160, 256)  # K1's wide kernel: one and two 128-column chunks
+WIDE_T = (1, 65, 128, 500)
 # Published H100 SXM peaks (NVIDIA data sheet, dense) at a 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -337,7 +356,60 @@ def phase_attention(torch):
                 row["library_kernels"] = _device_kernels(torch, library)
         emit(row)
         results[(dname, T) if batch == BATCH else (dname, T, batch)] = row
+    results["wide"] = _attention_wide_heads(torch, g)
     return results
+
+
+def _attention_wide_heads(torch, g):
+    """K1 at head dims past 64 (the wide kernel: 128-column chunks, D = 96
+    zero-padded in shared memory), f32 and bf16, at T = 1, 65, 128 and 500
+    with a ragged mask, a first key tile wholly masked and a fully masked
+    row: one launch each, against the plain version; at T = 128 its device
+    time beside the plain version, SDPA and the bound at the true D."""
+    import torch.nn.functional as F
+
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for D in WIDE_HEAD_DIMS:
+            for T in WIDE_T:
+                q, k, v = (torch.randn((BATCH, HEADS, T, D), device="cuda", generator=g)
+                           .to(dtype) for _ in range(3))
+                mask = _ragged_mask(torch, T, g)
+                bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
+                before = attn.launches
+                out = attn.multihead_attention(q, k, v, mask)
+                torch.cuda.synchronize()
+                require(attn.launches == before + 1, f"{dname} D={D} T={T}: no K1 launch")
+                with full_fp32():
+                    plain = attn._attention_torch(q, k, v, bias)
+                err = (out.float() - plain.float()).abs().max().item()
+                require(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                        f"{dname} D={D} T={T}: bad output")
+                require(err <= TOLERANCE[dname], f"{dname} D={D} T={T}: max abs err {err}")
+                uniform = v[-1].float().mean(dim=1, keepdim=True).expand(HEADS, T, D)
+                err_uniform = (out[-1].float() - uniform).abs().max().item()
+                require(err_uniform <= TOLERANCE[dname],
+                        f"{dname} D={D} T={T}: fully masked row err {err_uniform}")
+                row = {"dtype": dname, "D": D, "T": T, "plan": attn.kernel_plan(D),
+                       "max_abs_err": err, "err_uniform_row": err_uniform}
+                if T == 128:
+                    lib_mask = bias[:, :, None, :].to(dtype)
+                    row["kernel_ms"] = graph_ms(lambda: attn.multihead_attention(q, k, v, mask))
+                    with full_fp32():
+                        row["plain_ms"] = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
+                        row["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=lib_mask))
+                    row["bound_ms"], row["bound_by"] = attention_bound_ms(
+                        BATCH * HEADS, T, dname, mask.numel(), D)
+                emit({"phase": "attention", "check": "wide_head", **row})
+                rows.append(row)
+                del q, k, v, out, plain
+    return rows
 
 
 def _write_model(torch, path: Path, rng) -> None:
@@ -1680,13 +1752,19 @@ def _augment_ms(torch, smi):
 
 def _loader_rates(torch, workdir: Path, smi):
     """Train-loader clips/s from create_dataloader at the train CLI's
-    defaults (batch 8, 4 workers, max_frames 500, 64x64 clips) on the
-    640x360 x 300-frame mp4 corpus of the native phase, host against device
-    augment mode: the first epoch (full-resolution decode, resize and
-    augmentation) and the second (decoded frames cached)."""
+    defaults (batch 8, 4 workers, max_frames 500, 64x64 clips) on the first
+    LOADER_VIDEOS of the native phase's 640x360 x 300-frame mp4s, host
+    against device augment mode: the first epoch (full-resolution decode,
+    resize and augmentation) and the second (decoded frames cached)."""
     from video_fingerprint_tpu_torch.data.dataset import create_dataloader
 
-    videos, paths = _hd_corpus(workdir)
+    _, corpus = _hd_corpus(workdir)
+    videos = workdir / "hd_loader_videos"  # the first LOADER_VIDEOS, hard-linked
+    paths = corpus[:LOADER_VIDEOS]
+    if not videos.exists():
+        videos.mkdir()
+        for p in paths:
+            os.link(p, videos / p.name)
     rows = {}
     for mode in ("host", "device"):
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1781,6 +1859,7 @@ def phase_augment(torch, workdir: Path, smi: str):
 # ------------------------------------------------------------- native paths
 
 HD_VIDEOS, HD_FRAMES, HD_H, HD_W = 32, 300, 360, 640
+LOADER_VIDEOS = 8  # the augment phase's loader epochs run on these of the 34
 
 
 def _hd_frames(seed: int) -> np.ndarray:
@@ -1870,6 +1949,26 @@ def _scan_and_group(torch, scanner, videos):
     return fps, groups, attn.launches - before
 
 
+def _decode_percore(workdir: Path, native_built: bool, smi: str):
+    """tools/bench_decode_percore.py at its defaults (8 seeded 96x128 mp4s
+    of 240 frames, the e2e leg's frame size, 64 frames each to 64x64): one
+    worker's frames/s with cv2, and with vfp_decode where it built, else
+    its build error and no native rate."""
+    from video_fingerprint_tpu_torch.tools import bench_decode_percore as bd
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        row = bd.run(bd.parse_args(["--out", str(workdir / "percore_videos")]))
+    require(row["cv2_fps"] > 0 and row["frames_per_pass"] == 8 * 64,
+            f"per-core decode: {row}")
+    if native_built:
+        require(row["native_fps"] > 0, f"per-core decode: no native rate {row}")
+    else:
+        require(row["native_fps"] is None and bool(row["native_error"]),
+                f"per-core decode without vfp_decode: {row}")
+    emit({"phase": "native", "check": "percore", "smi": smi, **row})
+    return row
+
+
 def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi: str):
     from video_fingerprint_tpu_torch.data import decode, preprocess
     from video_fingerprint_tpu_torch.utils import native, native_decode
@@ -1880,6 +1979,7 @@ def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi
               "build_errors": {"vfp_host": native.LIBRARY.error[-400:],
                                "vfp_decode": native_decode.LIBRARY.error[-400:]}}
     emit({"phase": "native", "check": "build", **report})
+    report["percore"] = _decode_percore(workdir, built["vfp_decode"], smi)
     if not built["vfp_decode"]:
         _, out = _scanner(torch, model_path, native_decode=True)
         require("native decode requested but unavailable; using cv2" in out,
@@ -2808,8 +2908,109 @@ def phase_bench(torch, workdir: Path, smi: str):
     return row
 
 
+PROFILE_FULL_TOL = 0.10  # the profile's full leg against headline_forward_ms
+PROFILE_TIMEOUT_S = 600
+
+
+def phase_profile(torch, smi: str):
+    """tools/profile_extraction.py at the headline's shape (B = 512, T =
+    128, the seeded fused bf16 model), in a process of its own: the top
+    device kernels of one forward and of each stage, the JAX split, every
+    cumulative stack leg with cudnn.benchmark off and on beside its byte
+    and operation bounds, and the conv0 probes.
+    The stages chain to forward_flat; K1 runs 4 times per forward; the full
+    leg lands within PROFILE_FULL_TOL of headline_forward_ms, timed in the
+    tool's process."""
+    t0 = time.perf_counter()
+    # its own process: torch.profiler, which names the kernels, recorded only
+    # part of them in a process that had captured CUDA graphs before
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_fingerprint_tpu_torch.tools.profile_extraction"],
+        capture_output=True, text=True, timeout=PROFILE_TIMEOUT_S,
+        cwd=Path(__file__).resolve().parent)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(proc.returncode == 0 and bool(lines),
+            f"profile_extraction exited {proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(lines[-1])
+    require(res["chained_vs_forward_flat_maxerr"] <= TOLERANCE["bfloat16"],
+            f"profile: the stages do not chain to forward_flat "
+            f"({res['chained_vs_forward_flat_maxerr']})")
+    require(res["k1_launches_per_forward"] == 4,
+            f"profile: K1 launched {res['k1_launches_per_forward']} times per forward")
+    stack = res["stack"]
+    for leg, row in stack.items():
+        require(row["benchmark_off"] > 0 and row["benchmark_on"] > 0 and row["bound_ms"] > 0,
+                f"profile: stack leg {leg} {row}")
+    for cfg, row in res["split"].items():
+        require(all(row[k] > 0 for k in ("full_ms", "spatial_ms", "temporal_ms")),
+                f"profile: split {cfg} {row}")
+    conv0 = res["conv0"]
+    require(conv0["wide4_vs_ref_maxerr"] <= 1e-4 and conv0["s2d_f32_vs_k5s2_maxerr"] <= 1e-4,
+            f"profile: conv0 rewrites disagree with conv0: {conv0['wide4_vs_ref_maxerr']}, "
+            f"{conv0['s2d_f32_vs_k5s2_maxerr']}")
+    kernels = res["kernels"]
+    require(bool(kernels["kernels"]) and kernels["k1_ms"] > 0,
+            f"profile: no device kernels or no K1 in the trace: {kernels['kernels']}")
+    full, headline = stack["full"]["benchmark_off"], res["headline_forward_ms"]
+    gap = abs(full - headline) / headline
+    require(gap <= PROFILE_FULL_TOL,
+            f"profile: full leg {full} ms against headline_forward_ms {headline} ms")
+    own = {leg: row["own_ms"] for leg, row in stack.items() if "own_ms" in row}
+    legs = {leg: {k: row[k] for k in ("benchmark_off", "benchmark_on", "bytes", "flops",
+                                      "byte_bound_ms", "flop_bound_ms", "bound_ms", "bound_by")}
+            for leg, row in stack.items()}
+    convs = sum(own[leg]["benchmark_off"] for leg in ("conv0", "conv0_1", "conv0_2", "conv0_3"))
+    row = {"phase": "profile", "smi": smi, "batch": res["batch"], "frames": res["frames"],
+           "parameters": res["parameters"], "stack": legs, "own_ms": own,
+           "conv_own_ms_sum": convs,
+           "stage_own_ms_sum": stack["convert"]["benchmark_off"] + sum(
+               v["benchmark_off"] for v in own.values()),
+           "full_leg_ms": full, "headline_forward_ms": headline, "full_vs_headline": gap,
+           "split": res["split"], "conv0": conv0, "kernels": kernels,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+GRAFT_DEVICES = 4  # dryrun_multichip's devices: cuda:0 four times
+
+
+def phase_graft(torch, smi: str):
+    """tools/graft_entry.py: entry()'s forward on the card (K1 launched 4
+    times, a unit embedding, cosine >= 0.9999 with the same variables'
+    forward on the CPU), then dryrun_multichip(GRAFT_DEVICES) over cuda:0
+    repeated, every program against its one-device oracle."""
+    from video_fingerprint_tpu_torch.tools import graft_entry
+
+    t0 = time.perf_counter()
+    fn, (variables, video) = graft_entry.entry()
+    _zero_launches()
+    out = fn(variables, video)
+    torch.cuda.synchronize()
+    launches = _launches()["attention"]
+    require(launches == 4, f"graft entry: K1 launched {launches} times")
+    emb = out.cpu().numpy()
+    require(emb.shape == (1, 256) and bool(np.isfinite(emb).all())
+            and abs(float(np.linalg.norm(emb)) - 1.0) <= 1e-4, f"graft entry: {emb}")
+    cpu_fn, _ = graft_entry.entry(device="cpu")
+    ref = cpu_fn(variables, video.cpu()).numpy()
+    cos = float(np.dot(emb[0], ref[0]) / (np.linalg.norm(emb) * np.linalg.norm(ref)))
+    require(cos >= 0.9999, f"graft entry: card vs CPU cosine {cos}")
+    entry_s = time.perf_counter() - t0
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        graft_entry.dryrun_multichip(GRAFT_DEVICES, ["cuda:0"] * GRAFT_DEVICES)
+    lines = [line for line in log.getvalue().splitlines() if line.startswith("dryrun_multichip")]
+    require(len(lines) == 8, f"graft dry run printed {lines}")
+    row = {"phase": "graft", "smi": smi, "k1_launches": launches, "card_vs_cpu_cos": cos,
+           "entry_seconds": entry_s, "devices": ["cuda:0"] * GRAFT_DEVICES,
+           "programs": lines, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native", "multigpu", "multiproc", "bench")
+          "native", "multigpu", "multiproc", "bench", "profile", "graft")
 
 
 def _settle(torch) -> None:
@@ -2874,6 +3075,10 @@ def main(argv=None) -> int:
                 phase_multiproc(torch, work, smi)
             elif name == "bench":
                 phase_bench(torch, work, smi)
+            elif name == "profile":
+                phase_profile(torch, smi)
+            elif name == "graft":
+                phase_graft(torch, smi)
             phase_seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "done", "phases": run, "phase_seconds": phase_seconds,
           "seconds": time.perf_counter() - t_start})

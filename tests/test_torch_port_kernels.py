@@ -131,12 +131,25 @@ def test_attention_kernel_head_dims(card, D, dtype):
 
 
 @pytest.mark.gpu
-def test_attention_kernel_refuses_head_dim_96(card):
-    q, k, v, mask = _inputs(16, torch.float32, D=96)
-    before = attn.launches
-    with pytest.raises(ValueError, match="head dims up to 64"):
-        attn.multihead_attention(q, k, v, mask)
-    assert attn.launches == before
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [96, 128, 160, 256])
+def test_attention_kernel_wide_heads(card, D, dtype):
+    """Heads past 64 columns (the wide kernel: one 128-column chunk for
+    D = 96, zero-padded in shared memory, and D = 128; two for D = 160 and
+    256): one launch each, against the plain version at T from one frame
+    past two key tiles, and through the model's strided views of a fused
+    qkv projection and rows that are not 16-byte aligned."""
+    for T in (1, 65, 128, 500):
+        _check_attention(*_inputs(T, dtype, D=D), ATTENTION_TOL[dtype])
+    B, H, T = 8, 8, 65
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.normal(size=(B, T, 3 * H * D)).astype(np.float32))
+    q, k, v = qkv.cuda().to(dtype).view(B, T, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    _check_attention(q, k, v, _mask(B, T), ATTENTION_TOL[dtype])
+    n = B * H * T * D
+    flat = torch.from_numpy(rng.normal(size=3 * n + 1).astype(np.float32)).cuda().to(dtype)
+    q, k, v = (flat[1 + i * n: 1 + (i + 1) * n].view(B, H, T, D) for i in range(3))
+    _check_attention(q, k, v, _mask(B, T), ATTENTION_TOL[dtype])
 
 
 @pytest.mark.gpu

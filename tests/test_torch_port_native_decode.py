@@ -6,14 +6,18 @@ gives the JAX loader's batches and train mode ignores the native backend;
 the port's scanners (attention and 3D) with native_decode equal the JAX
 scanners with the same flag (max abs 1e-4, cosine 0.9999); the scan CLI
 runs --native_decode and --native_preprocess on the CPU and gives the JAX
-CLI's groups. Skipped where g++ or libav cannot build the library, as the
-JAX package's tests are."""
+CLI's groups. Skipped only where the port's own library cannot be built
+(g++ or the libav headers missing: the message says which); where the
+port's built and the JAX package's did not load, the fixture waits out the
+JAX build and loads it again (`load_jax_native`), and fails if it still
+does not load."""
 
 import json
 
 import numpy as np
 import pytest
 
+from tests.test_torch_port_native import load_jax_native
 from video_fingerprint_tpu.utils import native_decode as jax_nd
 from video_fingerprint_tpu_torch.ops import _build
 from video_fingerprint_tpu_torch.utils import native_decode as nd
@@ -21,8 +25,10 @@ from video_fingerprint_tpu_torch.utils import native_decode as nd
 
 @pytest.fixture(scope="module")
 def lib():
-    if not (nd.available() and jax_nd.available()):
-        pytest.skip(f"libav toolchain unavailable: {nd.LIBRARY.error}")
+    if not nd.available():
+        pytest.skip(f"the port's vfp_decode did not build (g++ or the libav headers "
+                    f"missing?): {nd.LIBRARY.error[-300:]}")
+    load_jax_native(jax_nd)
     return nd.LIBRARY.load()
 
 

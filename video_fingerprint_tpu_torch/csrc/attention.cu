@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel video_fingerprint_tpu/ops/attention.py::_attn_kernel
 // (entered through fused_attention / multihead_attention). Per (batch, head)
-// instance, with a head width D of 32 or 64 and any number of frames T >= 1:
+// instance, with any head width D >= 1 and any number of frames T >= 1:
 //
 //   s = q . k^T * scale + bias          f32; scale = 1 / sqrt(D_true), where
 //                                       the wrapper zero-pads a head of
@@ -85,12 +85,30 @@
 // model hands over views of its fused qkv projection without copies and
 // receives o already in (B, T, H, D) order.
 //
-// Head width. Every kernel is a template on D (32 or 64); the register tiles
-// grow with it: in f32 a thread owns 4 output columns per 32 (4 tx + 32 g),
-// in bf16 a warp reads Q's A fragments per 16 columns and K's B fragments
-// per 32, and P.V has D / 8 accumulator tiles. At D = 64 the f32 tiles take
-// 104 KB of shared memory (two blocks per SM), so its register limit is the
-// one of two blocks per SM.
+// Head width. Every kernel is a template on its tile width D (32, 64 or
+// 128); the register tiles grow with it: in f32 a thread owns 4 output
+// columns per 32 (4 tx + 32 g), in bf16 a warp reads Q's A fragments per 16
+// columns and K's B fragments per 32, and P.V has D / 8 accumulator tiles.
+// At D = 64 the f32 tiles take 104 KB of shared memory (two blocks per SM),
+// so its register limit is the one of two blocks per SM.
+//   - Heads of exactly 32 or 64 columns take the narrow kernels, whose q
+//     tile stays resident for the whole key loop.
+//   - Every other head width (the entry takes any D >= 1; the wrapper pads
+//     D < 64 to 32 or 64 itself) takes the wide kernel, of tile width 128.
+//     It walks the head in column chunks of 128: a block owns 64 query rows
+//     and one chunk of output columns, so the grid gains the chunk
+//     dimension (chunks innermost, so the blocks of one instance stay
+//     adjacent). Every block needs the scores over the whole head, so for
+//     each key tile it reads q and k in 128-column pieces, accumulating
+//     S = Q.K^T piece by piece, and then runs the softmax and P.V on its
+//     own chunk of v. Every chunk sees the same scores, so the softmax
+//     statistics agree across chunks. A step of the cp.async pipeline is
+//     one (key tile, piece): the q and k pieces are double-buffered, v and
+//     the key bias once per key tile. Columns past D load as zeros (the
+//     zero-padding of a 96-column head to 128, done in shared memory, so the
+//     wrapper makes no copy) and are not stored. Shared memory: f32 q, k, v
+//     2 x 64 x 132 floats each plus p and the bias, 221,696 B (one block per
+//     SM, so its register limit is that of one block); bf16 104,960 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,9 +121,14 @@ namespace {
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps of 16 query rows
+constexpr int kWideW = 128;    // the wide kernel's tile width: columns per chunk
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMasked = -FLT_MAX * 0.5f;  // finfo(f32).min / 2, exact
 static_assert(kBQ == kBK, "load_rows fills query and key tiles alike");
+
+// The wide kernel's tile width, which walks any head width in chunks.
+template <int D>
+constexpr bool kWideOf = D == kWideW;
 
 struct Params {
   const void* q;
@@ -118,6 +141,8 @@ struct Params {
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_st;
+  int D;        // the head width of q, k, v and o (the wide kernel's columns)
+  int nchunks;  // the wide kernel's 128-column chunks, ceil(D / 128); else 1
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -192,6 +217,33 @@ __device__ __forceinline__ void load_rows(Elem* dst, const Elem* src, long long 
   }
 }
 
+// The wide kernel's loader: rows row0 .. row0 + 63 and columns col0 ..
+// col0 + kW - 1 of a (T, D) operand -> a shared tile with a row stride of
+// kRow elements. Rows >= T and columns >= D are zeros. Aligned, D is a
+// multiple of the 16-byte copy.
+template <typename Elem, int kW, int kRow, bool kAligned>
+__device__ __forceinline__ void load_piece(Elem* dst, const Elem* src, long long st, int row0,
+                                           int T, int col0, int D) {
+  if (kAligned) {
+    constexpr int kChunk = 16 / sizeof(Elem);
+    constexpr int kChunks = kW / kChunk;
+    for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * kChunk;
+      const bool valid = row0 + r < T && col0 + c < D;
+      cp_async16(dst + r * kRow + c, valid ? src + (row0 + r) * st + col0 + c : src,
+                 valid ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * kW; i += kThreads) {
+      const int r = i / kW;
+      const int d = i % kW;
+      dst[r * kRow + d] =
+          row0 + r < T && col0 + d < D ? src[(row0 + r) * st + col0 + d] : Elem(0);
+    }
+  }
+}
+
 // The key bias of a tile: 0 or kMasked, -inf past T; thread j < 64 owns key
 // key0 + j. Its mask byte is fetched a tile ahead into a register, so the
 // global load's latency stays off the path of the tile being computed.
@@ -211,20 +263,25 @@ struct KeyBias {
   }
 };
 
-// One block's view of its instance and query tile.
-template <typename Elem>
+// One block's view of its instance and query tile (and, in the wide kernel,
+// its column chunk: blockIdx.x = (instance * query tiles + tile) * chunks +
+// chunk).
+template <typename Elem, bool kWide>
 struct Instance {
   const Elem* q;
   const Elem* k;
   const Elem* v;
   Elem* o;
   const uint8_t* mask;
-  int row0;    // first query row of the tile
-  int ntiles;  // key tiles
+  int row0;       // first query row of the tile
+  int ntiles;     // key tiles
+  int col0 = 0;   // first output column of the chunk
 
   __device__ Instance(const Params& p) {
     const int nq = (p.T + kBQ - 1) / kBQ;
-    const int bh = blockIdx.x / nq;
+    const unsigned blk = kWide ? blockIdx.x / p.nchunks : blockIdx.x;
+    if constexpr (kWide) col0 = (int)(blockIdx.x % p.nchunks) * kWideW;
+    const int bh = blk / nq;
     const int b = bh / p.H;
     const int h = bh % p.H;
     q = static_cast<const Elem*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -232,7 +289,7 @@ struct Instance {
     v = static_cast<const Elem*>(p.v) + b * p.v_sb + h * p.v_sh;
     o = static_cast<Elem*>(p.o) + b * p.o_sb + h * p.o_sh;
     mask = p.mask == nullptr ? nullptr : p.mask + (long long)b * p.T;
-    row0 = (int)(blockIdx.x % nq) * kBQ;
+    row0 = (int)(blk % nq) * kBQ;
     ntiles = (p.T + kBK - 1) / kBK;
   }
 };
@@ -240,41 +297,85 @@ struct Instance {
 // ---------------------------------------------------------------- float32
 
 // Blocks per SM the register limit is set for: the D = 64 f32 tiles leave
-// room for two.
+// room for two, the wide kernel's for one.
 template <int D>
-constexpr int kMinBlocks = D == 32 ? 4 : 2;
+constexpr int kMinBlocks = D == 32 ? 4 : D == 64 ? 2 : 1;
 
 template <int D>
-constexpr int kRowFOf = D + 4;  // 36 / 68 floats
+constexpr int kRowFOf = D + 4;  // 36 / 68 / 132 floats
 constexpr int kRowP = kBK + 8;  // 72 floats: a warp's 32 scalar p stores hit 32 banks
 
 template <int D>
 struct SmemF32 {
   static constexpr int kRowF = kRowFOf<D>;
-  float q[kBQ * kRowF];
+  float q[kWideOf<D> ? 2 : 1][kBQ * kRowF];  // the wide kernel double-buffers q's pieces
   float k[2][kBK * kRowF];
   float v[2][kBK * kRowF];
   float p[kBQ * kRowP];
   float bias[2][kBK];
 };
 
+// The first pipeline step's loads: q (its first piece in the wide kernel),
+// key tile 0 of k and v (v's own chunk), and tile 0's bias.
+template <typename Elem, int D, int kRow, bool kAligned, bool kWide>
+__device__ __forceinline__ void load_first(Elem* q, Elem* k, Elem* v, float* bias,
+                                           KeyBias& key_bias, const Instance<Elem, kWide>& in,
+                                           const Params& p) {
+  if constexpr (kWide) {
+    load_piece<Elem, D, kRow, kAligned>(q, in.q, p.q_st, in.row0, p.T, 0, p.D);
+    load_piece<Elem, D, kRow, kAligned>(k, in.k, p.k_st, 0, p.T, 0, p.D);
+    load_piece<Elem, D, kRow, kAligned>(v, in.v, p.v_st, 0, p.T, in.col0, p.D);
+  } else {
+    load_rows<Elem, D, kRow, kAligned>(q, in.q, p.q_st, in.row0, p.T);
+    load_rows<Elem, D, kRow, kAligned>(k, in.k, p.k_st, 0, p.T);
+    load_rows<Elem, D, kRow, kAligned>(v, in.v, p.v_st, 0, p.T);
+  }
+  key_bias.fetch(0);
+  key_bias.store(bias, 0);
+  key_bias.fetch(kBK);
+}
+
+// The loads of pipeline step `step` (> 0) into its stages: a narrow kernel
+// takes key tile `step` of k and v; the wide kernel the piece of q and k
+// of step (key tile step / pieces, piece step % pieces), and at a tile's
+// first piece that tile's v chunk. Each new tile stores its bias.
+template <typename Elem, int D, int kRow, bool kAligned, bool kWide, typename Smem>
+__device__ __forceinline__ void load_step(Smem& sm, KeyBias& key_bias,
+                                          const Instance<Elem, kWide>& in, const Params& p,
+                                          int step, int npieces) {
+  const int t = kWide ? step / npieces : step;
+  const int col = kWide ? (step % npieces) * kWideW : 0;
+  const int stage = step & 1;
+  if constexpr (kWide) {
+    load_piece<Elem, D, kRow, kAligned>(sm.q[stage], in.q, p.q_st, in.row0, p.T, col, p.D);
+    load_piece<Elem, D, kRow, kAligned>(sm.k[stage], in.k, p.k_st, t * kBK, p.T, col, p.D);
+    if (col != 0) return;
+    load_piece<Elem, D, kRow, kAligned>(sm.v[t & 1], in.v, p.v_st, t * kBK, p.T, in.col0, p.D);
+  } else {
+    load_rows<Elem, D, kRow, kAligned>(sm.k[stage], in.k, p.k_st, t * kBK, p.T);
+    load_rows<Elem, D, kRow, kAligned>(sm.v[stage], in.v, p.v_st, t * kBK, p.T);
+  }
+  key_bias.store(sm.bias[t & 1], t * kBK);
+  key_bias.fetch((t + 1) * kBK);
+}
+
 template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 attention_f32(Params p, float scale) {
+  constexpr bool kWide = kWideOf<D>;
   constexpr int kRowF = kRowFOf<D>;
   constexpr int kCG = D / 32;  // groups of 4 output columns per thread
   extern __shared__ float4 smem_f32[];
   SmemF32<D>& sm = *reinterpret_cast<SmemF32<D>*>(smem_f32);
   const int T = p.T;
-  const Instance<float> in(p);
+  const Instance<float, kWide> in(p);
+  // pipeline steps: one per key tile, or in the wide kernel one per (key
+  // tile, 128-column piece of q and k), the pieces innermost
+  const int npieces = kWide ? p.nchunks : 1;
+  const int nsteps = in.ntiles * npieces;
 
-  load_rows<float, D, kRowF, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
-  load_rows<float, D, kRowF, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
-  load_rows<float, D, kRowF, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
   KeyBias key_bias{in.mask, T};
-  key_bias.fetch(0);
-  key_bias.store(sm.bias[0], 0);
-  key_bias.fetch(kBK);
+  load_first<float, D, kRowF, kAligned>(sm.q[0], sm.k[0], sm.v[0], sm.bias[0], key_bias, in, p);
   cp_async_commit();
 
   const int lane = threadIdx.x % 32;
@@ -284,6 +385,7 @@ attention_f32(Params p, float scale) {
   float o[4][4 * kCG];
   float m[4];
   float l[4];
+  float s[4][8];  // scores of rows rbase + 4 i and keys tx + 8 c
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -292,35 +394,35 @@ attention_f32(Params p, float scale) {
     for (int c = 0; c < 4 * kCG; ++c) o[i][c] = 0.0f;
   }
 
-  for (int t = 0; t < in.ntiles; ++t) {
-    if (t + 1 < in.ntiles) {
-      const int next = (t + 1) & 1;
-      load_rows<float, D, kRowF, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
-      load_rows<float, D, kRowF, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
-      key_bias.store(sm.bias[next], (t + 1) * kBK);
-      key_bias.fetch((t + 2) * kBK);
+  for (int step = 0; step < nsteps; ++step) {
+    const int t = kWide ? step / npieces : step;  // key tile
+    const int piece = kWide ? step % npieces : 0;
+    if (step + 1 < nsteps) {
+      load_step<float, D, kRowF, kAligned>(sm, key_bias, in, p, step + 1, npieces);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* ks = sm.k[t & 1];
+    const float* qs = sm.q[kWide ? step & 1 : 0];
+    const float* ks = sm.k[step & 1];
     const float* vs = sm.v[t & 1];
     const float* bias = sm.bias[t & 1];
 
-    // S = Q.K^T for rows rbase + 4 i and keys tx + 8 c
-    float s[4][8];
+    // S = Q.K^T (in the wide kernel summed over the pieces of the head)
+    if (piece == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
+        for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
+    }
 #pragma unroll 1  // unrolled further, the f32 instances spill at 128 registers
     for (int d = 0; d < D; d += 4) {
       float4 qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(sm.q + (rbase + 4 * i) * kRowF + d);
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rbase + 4 * i) * kRowF + d);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + 8 * c) * kRowF + d);
@@ -332,6 +434,10 @@ attention_f32(Params p, float scale) {
           s[i][c] = fmaf(qv[i].w, kv.w, s[i][c]);
         }
       }
+    }
+    if (kWide && piece + 1 < npieces) {  // the tile's scores need the next piece
+      __syncthreads();
+      continue;
     }
 
     // online softmax; a row's 64 keys lie on the 8 lanes tx = 0..7
@@ -399,16 +505,17 @@ attention_f32(Params p, float scale) {
     if (row >= T) continue;
 #pragma unroll
     for (int g = 0; g < kCG; ++g) {
-      float* dst = in.o + row * p.o_st + 32 * g + 4 * tx;
-      const float4 out = make_float4(o[i][4 * g] / l[i], o[i][4 * g + 1] / l[i],
-                                     o[i][4 * g + 2] / l[i], o[i][4 * g + 3] / l[i]);
+      const int col = in.col0 + 32 * g + 4 * tx;  // columns past D are not stored
+      float* dst = in.o + row * p.o_st + col;
+      const float out[4] = {o[i][4 * g] / l[i], o[i][4 * g + 1] / l[i],
+                            o[i][4 * g + 2] / l[i], o[i][4 * g + 3] / l[i]};
       if (kAligned) {
-        *reinterpret_cast<float4*>(dst) = out;
+        if (!kWide || col < p.D)
+          *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
       } else {
-        dst[0] = out.x;
-        dst[1] = out.y;
-        dst[2] = out.z;
-        dst[3] = out.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!kWide || col + e < p.D) dst[e] = out[e];
       }
     }
   }
@@ -416,14 +523,15 @@ attention_f32(Params p, float scale) {
 
 // --------------------------------------------------------------- bfloat16
 
-// 40 / 72 bf16 = 80 / 144 B: an ldmatrix phase's 8 rows hit 8 bank groups
+// 40 / 72 / 136 bf16 = 80 / 144 / 272 B: an ldmatrix phase's 8 rows hit 8
+// bank groups
 template <int D>
 constexpr int kRowHOf = D + 8;
 
 template <int D>
 struct SmemBf16 {
   static constexpr int kRowH = kRowHOf<D>;
-  uint16_t q[kBQ * kRowH];
+  uint16_t q[kWideOf<D> ? 2 : 1][kBQ * kRowH];  // the wide kernel double-buffers q's pieces
   uint16_t k[2][kBK * kRowH];
   uint16_t v[2][kBK * kRowH];
   float bias[2][kBK];
@@ -432,20 +540,19 @@ struct SmemBf16 {
 template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 attention_bf16(Params p, float scale) {
+  constexpr bool kWide = kWideOf<D>;
   constexpr int kRowH = kRowHOf<D>;
   constexpr int kN = D / 8;  // accumulator tiles of O
   extern __shared__ float4 smem_bf16[];
   SmemBf16<D>& sm = *reinterpret_cast<SmemBf16<D>*>(smem_bf16);
   const int T = p.T;
-  const Instance<uint16_t> in(p);
+  const Instance<uint16_t, kWide> in(p);
+  const int npieces = kWide ? p.nchunks : 1;  // as in attention_f32
+  const int nsteps = in.ntiles * npieces;
 
-  load_rows<uint16_t, D, kRowH, kAligned>(sm.q, in.q, p.q_st, in.row0, T);
-  load_rows<uint16_t, D, kRowH, kAligned>(sm.k[0], in.k, p.k_st, 0, T);
-  load_rows<uint16_t, D, kRowH, kAligned>(sm.v[0], in.v, p.v_st, 0, T);
   KeyBias key_bias{in.mask, T};
-  key_bias.fetch(0);
-  key_bias.store(sm.bias[0], 0);
-  key_bias.fetch(kBK);
+  load_first<uint16_t, D, kRowH, kAligned>(sm.q[0], sm.k[0], sm.v[0], sm.bias[0], key_bias, in,
+                                           p);
   cp_async_commit();
 
   const int lane = threadIdx.x % 32;
@@ -454,6 +561,7 @@ attention_bf16(Params p, float scale) {
   const int t4 = lane & 3;  // accumulator columns 2 t4, 2 t4 + 1 of each 8
   uint32_t qa[D / 16][4];   // Q's A fragments, d 16 kk .. 16 kk + 15
   float o[kN][4];           // O's accumulators, d tiles of 8
+  float s[8][4];            // S's accumulators, key tiles of 8
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
 #pragma unroll
@@ -461,36 +569,36 @@ attention_bf16(Params p, float scale) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[n][r] = 0.0f;
 
-  for (int t = 0; t < in.ntiles; ++t) {
-    if (t + 1 < in.ntiles) {
-      const int next = (t + 1) & 1;
-      load_rows<uint16_t, D, kRowH, kAligned>(sm.k[next], in.k, p.k_st, (t + 1) * kBK, T);
-      load_rows<uint16_t, D, kRowH, kAligned>(sm.v[next], in.v, p.v_st, (t + 1) * kBK, T);
-      key_bias.store(sm.bias[next], (t + 1) * kBK);
-      key_bias.fetch((t + 2) * kBK);
+  for (int step = 0; step < nsteps; ++step) {
+    const int t = kWide ? step / npieces : step;  // key tile
+    const int piece = kWide ? step % npieces : 0;
+    if (step + 1 < nsteps) {
+      load_step<uint16_t, D, kRowH, kAligned>(sm, key_bias, in, p, step + 1, npieces);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (kWide || t == 0) {  // the narrow kernels keep Q's fragments for the whole loop
+      const uint16_t* qs = sm.q[kWide ? step & 1 : 0];
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qa[kk], sm.q + (warp * 16 + (lane & 15)) * kRowH + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * kRowH + kk * 16 + (lane >> 4) * 8);
     }
-    const uint16_t* ks = sm.k[t & 1];
+    const uint16_t* ks = sm.k[step & 1];
     const uint16_t* vs = sm.v[t & 1];
     const float* bias = sm.bias[t & 1];
 
     // S = Q.K^T: 8 key tiles of 8; one ldmatrix gives a key tile's B
     // fragments for d 32 dd .. + 15 (b[0], b[1]) and 32 dd + 16 .. + 31
-    // (b[2], b[3])
-    float s[8][4];
+    // (b[2], b[3]); in the wide kernel summed over the pieces of the head
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
+      if (piece == 0) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[n][r] = 0.0f;
+        for (int r = 0; r < 4; ++r) s[n][r] = 0.0f;
+      }
 #pragma unroll
       for (int dd = 0; dd < D / 32; ++dd) {
         uint32_t b[4];
@@ -498,6 +606,10 @@ attention_bf16(Params p, float scale) {
         mma_bf16(s[n], qa[2 * dd], b[0], b[1]);
         mma_bf16(s[n], qa[2 * dd + 1], b[2], b[3]);
       }
+    }
+    if (kWide && piece + 1 < npieces) {  // the tile's scores need the next piece
+      __syncthreads();
+      continue;
     }
 
     // online softmax; s[n][0..1] are row g, s[n][2..3] row g + 8, and a
@@ -561,15 +673,16 @@ attention_bf16(Params p, float scale) {
     l[h] += __shfl_xor_sync(kFull, l[h], 2);
     const int row = in.row0 + warp * 16 + g + 8 * h;
     if (row >= T) continue;
-    uint16_t* dst = in.o + row * p.o_st + 2 * t4;
+    uint16_t* dst = in.o + row * p.o_st + in.col0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
+      const int col = in.col0 + n * 8 + 2 * t4;  // columns past D are not stored
       const uint32_t pair = pack_bf16(o[n][2 * h] / l[h], o[n][2 * h + 1] / l[h]);
       if (kAligned) {
-        *reinterpret_cast<uint32_t*>(dst + n * 8) = pair;
+        if (!kWide || col < p.D) *reinterpret_cast<uint32_t*>(dst + n * 8) = pair;
       } else {
-        dst[n * 8] = static_cast<uint16_t>(pair & 0xffffu);
-        dst[n * 8 + 1] = static_cast<uint16_t>(pair >> 16);
+        if (!kWide || col < p.D) dst[n * 8] = static_cast<uint16_t>(pair & 0xffffu);
+        if (!kWide || col + 1 < p.D) dst[n * 8 + 1] = static_cast<uint16_t>(pair >> 16);
       }
     }
   }
@@ -609,9 +722,11 @@ bool aligned16(const void* ptr, long long sb, long long sh, long long st, int el
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. D, the head width of q, k, v and o, is
-// 32 or 64; scale is 1 / sqrt of the true head dim (columns past it are
-// zeros). Strides are in elements; the head dimension is contiguous. Any
-// T >= 1. Returns the cudaError_t of the launch.
+// any width >= 1: 32 and 64 take the narrow kernels, every other width the
+// wide kernel in ceil(D / 128) column chunks; scale is 1 / sqrt of the true
+// head dim (a head the caller zero-padded to D keeps its own scale).
+// Strides are in elements; the head dimension is contiguous. Any T >= 1.
+// Returns the cudaError_t of the launch.
 int vfp_attention_forward(const void* q, const void* k, const void* v,
                           const void* mask, void* o, int B, int H, int T, int D,
                           int dtype, float scale,
@@ -620,19 +735,24 @@ int vfp_attention_forward(const void* q, const void* k, const void* v,
                           long long v_sb, long long v_sh, long long v_st,
                           long long o_sb, long long o_sh, long long o_st,
                           void* stream) {
-  const long long blocks = (long long)((T + kBQ - 1) / kBQ) * B * H;
-  if (T < 1 || B < 1 || H < 1 || (D != 32 && D != 64) || blocks > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const int width = D == 32 || D == 64 ? D : kWideW;
+  const int nchunks = width == kWideW ? (D + kWideW - 1) / kWideW : 1;
+  const long long blocks = (long long)((T + kBQ - 1) / kBQ) * B * H * nchunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, static_cast<const uint8_t*>(mask), o, B, H, T,
-           q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+           q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,
+           D, nchunks};
   const int elem = dtype == 1 ? 2 : 4;
-  const bool aligned = aligned16(q, q_sb, q_sh, q_st, elem) &&
+  const bool aligned = D % (16 / elem) == 0 &&
+                       aligned16(q, q_sb, q_sh, q_st, elem) &&
                        aligned16(k, k_sb, k_sh, k_st, elem) &&
                        aligned16(v, v_sb, v_sh, v_st, elem) &&
                        aligned16(o, o_sb, o_sh, o_st, elem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D == 32 ? launch_width<32>(p, dtype, aligned, scale, blocks, s)
-                                  : launch_width<64>(p, dtype, aligned, scale, blocks, s);
+  const cudaError_t err = width == 32 ? launch_width<32>(p, dtype, aligned, scale, blocks, s)
+                          : width == 64 ? launch_width<64>(p, dtype, aligned, scale, blocks, s)
+                                        : launch_width<kWideW>(p, dtype, aligned, scale, blocks, s);
   return (int)err;
 }
 

@@ -105,15 +105,18 @@ class VideoFingerprintAttention(nn.Module):
         norm = torch.linalg.vector_norm(embedding, dim=1, keepdim=True)
         return embedding / norm.clamp_min(1e-12)
 
-    def _encode_flat(self, flat_frames: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) frames -> (N, spatial_dim). uint8 frames are
-        normalized by /255 on the device, in the compute dtype; float frames
-        (already in [0, 1]) are cast to it. The
+    def input_from_frames(self, flat_frames: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) frames -> the spatial encoder's (N, C, H, W) input.
+        uint8 frames are normalized by /255 on the device, in the compute
+        dtype; float frames (already in [0, 1]) are cast to it. The
         (N, H, W, C) buffer is viewed as NCHW with channels-last strides,
         which costs nothing."""
         x = flat_frames.permute(0, 3, 1, 2)
-        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 else x.to(self.dtype)
-        return self.spatial_encoder(x)
+        return x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 else x.to(self.dtype)
+
+    def _encode_flat(self, flat_frames: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) frames -> (N, spatial_dim)."""
+        return self.spatial_encoder(self.input_from_frames(flat_frames))
 
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) -> (B, T, spatial_dim), the per-frame CNN alone

@@ -8,13 +8,20 @@ forward. On a CUDA tensor the wrappers launch the hand-written kernel in
 version of the same function. Nothing falls back: a CUDA tensor the kernel
 cannot take raises.
 
-The kernel is built for head widths 32 and 64 (`KERNEL_WIDTHS`). A head of
-D < 32, or 32 < D < 64, is zero-padded to the next width and the padded
-output columns are dropped; zero columns leave q k^T unchanged and the
-scale stays 1/sqrt(D), so the result is exact. D = 32 and D = 64 pass
-without a copy; D > 64 raises. The kernel has no backward: it raises when
-autograd would need one (train-mode attention is plain torch math, as in
-the JAX package).
+The kernel takes any head width D (`kernel_plan`):
+
+- D = 32 and D = 64 run the narrow kernels as they are, without a copy;
+- D < 32, or 32 < D < 64, is zero-padded here to the next of those widths
+  and the padded output columns are dropped;
+- every D > 64 runs the wide kernel, which walks the head in column chunks
+  of 128 (one for 64 < D <= 128, ceil(D / 128) above): a block sums the
+  scores over every 128-column piece of q and k and writes its own chunk of
+  the output. Columns past D are zero-padded in the kernel's shared
+  memory, so these heads pass without a copy.
+
+Zero columns leave q k^T unchanged and the scale stays 1/sqrt(D), so the
+padding is exact. The kernel has no backward: it raises when autograd would
+need one (train-mode attention is plain torch math, as in the JAX package).
 
 Semantics follow video_fingerprint_tpu/ops/attention.py: scores, bias and
 softmax in f32, the bias is the finite finfo(f32).min / 2 for a masked key
@@ -32,7 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-KERNEL_WIDTHS = (32, 64)  # head widths the kernel is instantiated for
+KERNEL_WIDTHS = (32, 64, 128)  # tile widths the kernel is instantiated for
+WIDE = KERNEL_WIDTHS[-1]  # the wide kernel's columns per chunk
 MASKED_BIAS = torch.finfo(torch.float32).min / 2
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show that
@@ -81,24 +89,32 @@ def _library():
 
 
 def kernel_width(head_dim: int) -> int:
-    """The kernel's head width for a head of `head_dim` columns."""
-    for width in KERNEL_WIDTHS:
-        if head_dim <= width:
-            return width
-    raise ValueError(f"the attention kernel takes head dims up to {KERNEL_WIDTHS[-1]}, "
-                     f"got {head_dim}")
+    """The kernel's tile width for a head of `head_dim` columns."""
+    return next(width for width in KERNEL_WIDTHS if head_dim <= width or width == WIDE)
+
+
+def kernel_plan(head_dim: int) -> tuple[int, int, int]:
+    """(tile width, column chunks, columns handed to the kernel) for a head
+    of `head_dim` columns: the narrow kernels take 32 or 64 columns (a
+    narrower head zero-padded here), the wide kernel the head as it is, in
+    ceil(D / 128) chunks."""
+    width = kernel_width(head_dim)
+    if width < WIDE:
+        return width, 1, width
+    return width, -(-head_dim // WIDE), head_dim
 
 
 def _at_kernel_width(launch, q, k, v, mask):
-    """launch(q, k, v, mask, scale) at the kernel's width: q/k/v zero-padded
-    from D to `kernel_width(D)` columns (no copy when D is a width), the
-    scale of the true D, the padded output columns dropped."""
+    """launch(q, k, v, mask, scale) at the columns `kernel_plan` hands over:
+    q/k/v zero-padded from D to 32 or 64 where D is narrower (no copy when
+    D is a width or past 64), the scale of the true D, the padded output
+    columns dropped."""
     D = q.shape[-1]
-    width = kernel_width(D)
+    columns = kernel_plan(D)[2]
     scale = 1.0 / math.sqrt(D)
-    if width == D:
+    if columns == D:
         return launch(q, k, v, mask, scale)
-    pad = lambda x: F.pad(x, (0, width - D))
+    pad = lambda x: F.pad(x, (0, columns - D))
     return launch(pad(q), pad(k), pad(v), mask, scale)[..., :D]
 
 
@@ -119,7 +135,7 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
-    """One launch on (B, H, T, width) views.
+    """One launch on (B, H, T, D) views.
 
     q, k and v may be strided views (the head dimension contiguous); the
     output is allocated as (B, T, H, width) and returned as its
