@@ -90,7 +90,7 @@ Phases, each of which raises (exit code 1) on any failure:
      with --native_decode against the cv2 3D scan;
  11. multi-device, every path on the one card (a device list that repeats
      cuda:0, or ranks that share it): the data-parallel scan of phase 3's
-     clips over 2 and 4 shards and phase 6's 3D scan over 2, held against
+     clips over 4 shards and phase 6's 3D scan over 2, held against
      the one-card scan (cosine >= 0.9999, equal groups through the direct
      and the sharded ring top-k), K1 launched 4 times per forward per
      shard, videos/s at bucket 128 per shard count; sharded_topk_search
@@ -148,7 +148,20 @@ Phases, each of which raises (exit code 1) on any failure:
  15. the graft entry points (tools/graft_entry.py): entry()'s forward on the card
      (K1 launched 4 times, against the CPU forward of the same variables),
      then dryrun_multichip(4) over cuda:0 four times (gloo ranks for the
-     data-parallel steps), every program against its one-device oracle.
+     data-parallel steps), every program against its one-device oracle;
+ 16. the measurement tools (tools/*.py), each once on the card as a process
+     of its own at the JAX tools' default sizes: device augment placement
+     (loader samples/s per mode, steps/s with device augment off and on) and
+     the augment hotspot (B = 16, T = 64, ms per stage by CUDA-graph
+     replay); train steps/s with a sync every step and every 10 (B = 64,
+     T = 64, f32 and bf16) and the train roofline's four legs; the streaming
+     validation metrics at 10^5 embeddings; the trajectory corpus (24
+     videos, its stamp); K1 against the plain version and SDPA at every scan
+     bucket (B·H = 16 x 8; D = 32, 4, 16, 64; f32 and bf16) and at B = 64 x 8,
+     T = 128, K1 launched once per captured call and equal to the plain
+     version; the top-k probes at 10^5 rows (precision, blocked, certified,
+     bf16 sims, production: every result verified against exact) and the
+     wide probe at 10^6. Every key present, every rate > 0.
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -2074,7 +2087,7 @@ def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi
 # shows that k shards or ranks compute what one device does; its times are
 # those of k shards on one H100, the cost of sharding, not a gain.
 
-MULTI_SHARDS = (2, 4)
+MULTI_SHARDS = (4,)  # the DP scan's shard count besides one card
 DP_TRAIN_B = 64          # the global batch of the two-rank train step
 DP_TRAIN_B3D = 128
 DP_STEPS = 2
@@ -2082,7 +2095,7 @@ DP_STEPS = 2
 
 def _dp_scan(torch, workdir: Path, smi: str):
     """Phase 3's 204 seeded clips through the attention scan at B = 64 on
-    one card and over [cuda:0] x 2 and x 4: cosine >= 0.9999 per clip, equal
+    one card and over [cuda:0] x 4: cosine >= 0.9999 per clip, equal
     duplicate groups (direct, and top-k: the ring over the shards), K1
     launched 4 times per forward per shard; videos/s at bucket 128 for each,
     k shards on one card. Then phase 6's 3D scan over [cuda:0] x 2."""
@@ -2103,7 +2116,7 @@ def _dp_scan(torch, workdir: Path, smi: str):
                     "file_hash": hashlib.md5(c.tobytes()).hexdigest()} for k, c in items}
 
     clips128 = [(i, rng.integers(0, 256, (128, 64, 64, 3), dtype=np.uint8))
-                for i in range(4 * BATCH)]
+                for i in range(2 * BATCH)]
     rows, single = {}, None
     for shards in (1,) + MULTI_SHARDS:
         dp = [CARD] * shards if shards > 1 else False
@@ -2480,19 +2493,24 @@ def _nccl_cli(torch, workdir: Path, smi: str):
 
 
 def phase_multigpu(torch, workdir: Path, smi: str):
-    """Every multi-device path on the one card: the data-parallel scan over 2
-    and 4 shards and the 3D scan over 2, the sharded and ring searches over
+    """Every multi-device path on the one card: the data-parallel scan over 4
+    shards and the 3D scan over 2, the sharded and ring searches over
     4, data-parallel training in 2 gloo ranks, the train CLI under the
     launcher on NCCL. Times are k shards or ranks on one card."""
     t0 = time.perf_counter()
-    scan = _dp_scan(torch, workdir, smi)
-    search = _dp_search(torch, smi)
-    train = _dp_train(torch, workdir, smi)
-    cli = _nccl_cli(torch, workdir, smi)
-    emit({"phase": "multigpu", "smi": smi, "scan": scan, "train": train, "cli": cli,
+    parts, seconds = {}, {}
+    for name, run in (("scan", lambda: _dp_scan(torch, workdir, smi)),
+                      ("search", lambda: _dp_search(torch, smi)),
+                      ("train", lambda: _dp_train(torch, workdir, smi)),
+                      ("cli", lambda: _nccl_cli(torch, workdir, smi))):
+        t_part = time.perf_counter()
+        parts[name] = run()
+        seconds[name] = time.perf_counter() - t_part
+    emit({"phase": "multigpu", "smi": smi, "scan": parts["scan"], "train": parts["train"],
+          "cli": parts["cli"],
           "search_ms": {k: {"ms": v["ms"], "single_card_ms": v["single_card_ms"]}
-                        for k, v in search.items()},
-          "seconds": time.perf_counter() - t0})
+                        for k, v in parts["search"].items()},
+          "part_seconds": seconds, "seconds": time.perf_counter() - t0})
 
 
 MP_RANKS = 2
@@ -2908,8 +2926,25 @@ def phase_bench(torch, workdir: Path, smi: str):
     return row
 
 
+TOOL_TIMEOUT_S = 600
+
+
+def _tool(name: str, *args: str) -> tuple[list, float]:
+    """`python -m video_fingerprint_tpu_torch.tools.<name> args` on the card in
+    a process of its own: (its JSON lines, seconds). A non-zero exit fails
+    the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"video_fingerprint_tpu_torch.tools.{name}",
+                           *args], capture_output=True, text=True, timeout=TOOL_TIMEOUT_S,
+                          cwd=Path(__file__).resolve().parent)
+    require(proc.returncode == 0, f"tool {name} {args} exited {proc.returncode}: "
+                                  f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(bool(lines), f"tool {name} printed no JSON line")
+    return lines, time.perf_counter() - t0
+
+
 PROFILE_FULL_TOL = 0.10  # the profile's full leg against headline_forward_ms
-PROFILE_TIMEOUT_S = 600
 
 
 def phase_profile(torch, smi: str):
@@ -2924,14 +2959,7 @@ def phase_profile(torch, smi: str):
     t0 = time.perf_counter()
     # its own process: torch.profiler, which names the kernels, recorded only
     # part of them in a process that had captured CUDA graphs before
-    proc = subprocess.run(
-        [sys.executable, "-m", "video_fingerprint_tpu_torch.tools.profile_extraction"],
-        capture_output=True, text=True, timeout=PROFILE_TIMEOUT_S,
-        cwd=Path(__file__).resolve().parent)
-    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
-    require(proc.returncode == 0 and bool(lines),
-            f"profile_extraction exited {proc.returncode}: {proc.stderr[-2000:]}")
-    res = json.loads(lines[-1])
+    res = _tool("profile_extraction")[0][-1]
     require(res["chained_vs_forward_flat_maxerr"] <= TOLERANCE["bfloat16"],
             f"profile: the stages do not chain to forward_flat "
             f"({res['chained_vs_forward_flat_maxerr']})")
@@ -3009,8 +3037,179 @@ def phase_graft(torch, smi: str):
     return row
 
 
+BUCKET_REPS = 24  # K1 calls per captured graph in exp_attention_buckets
+TRAJECTORY_VIDEOS = 24
+
+
+def _require_keys(what: str, row: dict, keys, positive=()) -> None:
+    missing = [k for k in keys if k not in row]
+    require(not missing, f"{what}: keys {missing} missing from {sorted(row)}")
+    bad = [k for k in positive if not row[k] > 0]
+    require(not bad, f"{what}: {[(k, row[k]) for k in bad]} not > 0")
+
+
+def _tools_buckets(seconds: dict) -> dict:
+    """exp_attention_buckets at every scan bucket (B·H = 16 x 8) and D = 32,
+    4, 16, 64, f32 and bf16; and at the attention phase's B = 64 x 8, T =
+    128 for D = 4, 16, 64 (the §6 K1 row's shape). Every row: K1 launched
+    BUCKET_REPS times per replay, K1 within 1e-5 (f32) or 2e-2 (bf16) of the
+    plain version, three device times > 0."""
+    dtypes = ("float32", "bfloat16")
+    out = {}
+    for tag, args in (("buckets", ["--dim", "32", "4", "16", "64"]),
+                      ("b64_t128", ["--batch", "64", "--buckets", "128",
+                                    "--dim", "4", "16", "64"])):
+        lines, seconds[f"exp_attention_buckets_{tag}"] = _tool(
+            "exp_attention_buckets", *args, "--dtype", *dtypes, "--reps", str(BUCKET_REPS))
+        table = lines[-1]["table"]
+        require(len(table) == len(lines) - 1 and "decision" in lines[-1],
+                f"buckets {tag}: {lines[-1]}")
+        for row in table:
+            what = f"buckets {tag} D={row['D']} {row['dtype']} T={row['T']}"
+            _require_keys(what, row, ("T", "BH", "plain_us_per_call", "k1_us_per_call",
+                                      "sdpa_us_per_call", "k1_speedup", "k1_vs_sdpa"),
+                          ("plain_us_per_call", "k1_us_per_call", "sdpa_us_per_call"))
+            require(row["k1_launches_per_replay"] == BUCKET_REPS,
+                    f"{what}: K1 launched {row['k1_launches_per_replay']} times per replay")
+            tol = 1e-5 if row["dtype"] == "float32" else 2e-2
+            require(row["k1_vs_plain_max_abs_err"] <= tol,
+                    f"{what}: K1 off the plain version by {row['k1_vs_plain_max_abs_err']}")
+        out[tag] = {"decision": lines[-1]["decision"], "table": table}
+    return out
+
+
+def phase_tools(torch, workdir: Path, smi: str):
+    """The thirteen measurement tools of tools/, each once on the card in a
+    process of its own at the JAX tools' default sizes (the trajectory
+    corpus, which needs no card, at 24 videos, beside the first tool), each
+    JSON checked: every key there, every rate > 0, the top-k probes'
+    results verified against exact, K1 in the bucket probe launched once per
+    captured call and equal to the plain version, the corpus stamped."""
+    t0 = time.perf_counter()
+    seconds, res = {}, {}
+    traj = workdir / "trajectory"
+    corpus = subprocess.Popen(
+        [sys.executable, "-m", "video_fingerprint_tpu_torch.tools.make_trajectory_corpus",
+         "--out", str(traj), "--videos", str(TRAJECTORY_VIDEOS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    try:
+        lines, seconds["exp_augment_hotspot"] = _tool("exp_augment_hotspot")
+        row = res["exp_augment_hotspot"] = lines[-1]
+        stages = ("color", "flip", "noise", "blur", "letterbox_overlay", "rotation",
+                  "full_pipeline")
+        keys = [f"{s}_ms_per_iter" for s in stages]
+        _require_keys("augment hotspot", row, keys + ["batch", "frames", "k"], keys)
+        require((row["batch"], row["frames"]) == (16, 64), f"augment hotspot: {row}")
+        out, err = corpus.communicate(timeout=TOOL_TIMEOUT_S)
+    finally:
+        if corpus.poll() is None:
+            corpus.kill()
+            corpus.wait()
+    require(corpus.returncode == 0, f"trajectory corpus exited {corpus.returncode}: {err[-2000:]}")
+    stamp = (traj / ".complete").read_text() if (traj / ".complete").exists() else None
+    videos = sorted(p.name for p in traj.glob("traj_*.mp4"))
+    require(stamp == f"{TRAJECTORY_VIDEOS}:48:160:100" and len(videos) == TRAJECTORY_VIDEOS,
+            f"trajectory corpus: stamp {stamp!r}, {len(videos)} videos")
+    res["make_trajectory_corpus"] = {"stamp": stamp, "videos": len(videos)}
+    seconds["make_trajectory_corpus_beside_hotspot"] = time.perf_counter() - t0
+
+    lines, seconds["bench_device_augment"] = _tool(
+        "bench_device_augment", "--cache-dir", str(workdir / "augbench"))
+    row = res["bench_device_augment"] = lines[-1]
+    rates = ("loader_samples_per_sec_host_augment", "loader_samples_per_sec_device_mode",
+             "train_steps_per_sec_augment_off", "train_steps_per_sec_device_augment")
+    _require_keys("device augment", row, rates + ("loader_speedup",
+                                                  "device_augment_step_overhead_pct",
+                                                  "step_batch", "step_frames"), rates)
+
+    for dtype, extra in (("float32", ()), ("bfloat16", ("--bf16",))):
+        lines, seconds[f"bench_train_step_{dtype}"] = _tool("bench_train_step", *extra)
+        row = res[f"bench_train_step_{dtype}"] = lines[-1]
+        rates = ("steps_per_sec_sync_every_step", "steps_per_sec_sync_every_10")
+        _require_keys(f"train step {dtype}", row, rates + ("speedup", "device"), rates)
+        require((row["batch"], row["frames"], row["dtype"]) == (64, 64, dtype),
+                f"train step: {row}")
+
+    lines, seconds["exp_train_roofline"] = _tool("exp_train_roofline")
+    row = res["exp_train_roofline"] = lines[-1]
+    rates = ("step_base_steps_per_sec_dispatched", "step_reuse_steps_per_sec_dispatched",
+             "fwd_base_per_sec_dispatched", "fwd_reuse_per_sec_dispatched")
+    _require_keys("train roofline", row, rates + (
+        "bwd_opt_ms_base", "bwd_opt_ms_reuse", "reuse_step_speedup", "reuse_fwd_speedup",
+        "step_base_mfu_dispatched", "step_base_tflops", "flops_source"), rates)
+
+    lines, seconds["bench_streaming_metrics"] = _tool("bench_streaming_metrics")
+    row = res["bench_streaming_metrics"] = lines[-1]
+    _require_keys("streaming metrics", row, (
+        "streaming_metrics_n", "streaming_metrics_s", "auc_roc", "R@1", "mAP",
+        "separation_gap", "block_rows", "device_mem_per_block_mb", "dense_equivalent_mb"),
+        ("streaming_metrics_s", "auc_roc", "R@1", "mAP", "separation_gap"))
+    require(row["streaming_metrics_n"] == 100_000 and row["auc_roc"] <= 1.0,
+            f"streaming metrics: {row}")
+
+    res["exp_attention_buckets"] = _tools_buckets(seconds)
+
+    lines, seconds["exp_topk_precision"] = _tool("exp_topk_precision")
+    row = res["exp_topk_precision"] = lines[-1]
+    for name in ("HIGHEST", "HIGH", "DEFAULT"):
+        _require_keys(f"precision {name}", row[name], ("qps", "median_s"), ("qps",))
+    for name in ("HIGH", "DEFAULT"):
+        _require_keys(f"precision {name}", row[name], (
+            "max_abs_score_delta", "topk_index_agreement", "decision_mismatch@0.95",
+            "decision_mismatch@0.99"))
+
+    lines, seconds["exp_topk_blocked"] = _tool("exp_topk_blocked")
+    row = res["exp_topk_blocked"] = lines[-1]
+    for name in ("maxonly", "single_topk", "blocked_exact", "approx_0.95"):
+        _require_keys(f"blocked {name}", row[name], ("qps", "median_s"), ("qps",))
+    require(row["blocked_equals_exact"] and row["blocked_max_score_delta"] == 0.0,
+            f"blocked two-stage differs from exact: {row}")
+    require(0 < row["approx_recall_measured"] <= 1, f"blocked: {row}")
+
+    lines, seconds["exp_topk_cert"] = _tool("exp_topk_cert")
+    row = res["exp_topk_cert"] = lines[-1]
+    for recall in (0.95, 0.99, 0.999):
+        r = row[f"certified@{recall}"]
+        _require_keys(f"cert {recall}", r, ("qps", "cert_fail_frac", "blocks_failed",
+                                             "effective_qps_with_rerun"), ("qps",))
+        require(r["cert_rows_exact"], f"certified@{recall}: certified rows not exact: {r}")
+
+    lines, seconds["exp_topk_bf16sims"] = _tool("exp_topk_bf16sims")
+    row = res["exp_topk_bf16sims"] = lines[-1]
+    for variant in ("max", "approx", "counts"):
+        for store in ("f32", "bf16"):
+            _require_keys(f"bf16sims {variant}_{store}", row["results"][f"{variant}_{store}"],
+                          ("s", "qps", "bytes_per_block", "bound_s_per_block"), ("qps",))
+    for store in ("f32", "bf16"):
+        require(row["results"][f"counts_{store}"]["certificate_holds"],
+                f"bf16sims: the {store} certificate missed an element above the threshold")
+    require(row["results"]["production_certified_bf16"]["qps"] > 0, f"bf16sims: {row}")
+
+    lines, seconds["exp_topk_production"] = _tool("exp_topk_production")
+    row = res["exp_topk_production"] = lines[-1]
+    for recall in (0.95, 0.99):
+        require(row[f"certified_strict@r{recall}"]["strict_exact"],
+                f"production strict@{recall}: {row[f'certified_strict@r{recall}']}")
+        require(row[f"certified_thr@r{recall}"]["thr_complete"],
+                f"production thr@{recall}: {row[f'certified_thr@r{recall}']}")
+    require(row["exact"]["qps"] > 0, f"production: {row}")
+
+    lines, seconds["exp_wide_topk"] = _tool("exp_wide_topk")
+    row = res["exp_wide_topk"] = lines[-1]
+    legs = [f"block{qb}_{stage}" for qb in (256, 1024) for stage in ("sims", "chunked")]
+    legs += [f"exact_search_qb{qb}_64k" for qb in (256, 1024)]
+    for name in legs:
+        _require_keys(f"wide {name}", row[name], ("ms", "peak_mem_gb"), ("ms", "peak_mem_gb"))
+
+    row = {"phase": "tools", "smi": smi, "results": res, "tool_seconds": seconds,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native", "multigpu", "multiproc", "bench", "profile", "graft")
+          "native", "multigpu", "multiproc", "bench", "profile", "graft", "tools")
 
 
 def _settle(torch) -> None:
@@ -3079,6 +3278,8 @@ def main(argv=None) -> int:
                 phase_profile(torch, smi)
             elif name == "graft":
                 phase_graft(torch, smi)
+            elif name == "tools":
+                phase_tools(torch, work, smi)
             phase_seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "done", "phases": run, "phase_seconds": phase_seconds,
           "seconds": time.perf_counter() - t_start})

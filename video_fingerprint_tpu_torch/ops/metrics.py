@@ -158,6 +158,28 @@ def retrieval_metrics(embeddings, video_ids,
     return metrics
 
 
+def _blocks(e: torch.Tensor, ids: torch.Tensor, block_rows: int):
+    """(sims, same id, self) of each block of `block_rows` rows against
+    every row."""
+    n = e.shape[0]
+    cols = torch.arange(n, device=e.device)
+    for start in range(0, n, block_rows):
+        rows = slice(start, min(start + block_rows, n))
+        sims = _sims(e[rows], e)
+        same = ids[rows, None] == ids[None, :]
+        eye = cols[None, :] == (start + torch.arange(sims.shape[0], device=e.device))[:, None]
+        yield sims, same, eye
+
+
+def intra_values(e: torch.Tensor, ids: torch.Tensor, block_rows: int = 256) -> torch.Tensor:
+    """Every ordered intra-pair similarity (i != j, same id), ascending:
+    the first pass of `streaming_validation_metrics` over its blocks, from
+    the products the second pass scores (the counterpart of JAX
+    `_intra_pair_sims`, which computes them group by group)."""
+    return torch.sort(torch.cat([sims[same & ~eye]
+                                 for sims, same, eye in _blocks(e, ids, block_rows)])).values
+
+
 def streaming_validation_metrics(
     embeddings,
     video_ids,
@@ -180,20 +202,10 @@ def streaming_validation_metrics(
     if n == 0:
         raise ValueError("streaming_validation_metrics needs >= 1 embedding")
     kmax = min(max(k_values), n - 1)
-    cols = torch.arange(n, device=e.device)
-
-    def blocks():
-        for start in range(0, n, block_rows):
-            rows = slice(start, min(start + block_rows, n))
-            sims = _sims(e[rows], e)
-            same = ids[rows, None] == ids[None, :]
-            eye = cols[None, :] == (start + torch.arange(sims.shape[0], device=e.device))[:, None]
-            yield sims, same, eye
-
-    intra_vals = torch.sort(torch.cat([sims[same & ~eye] for sims, same, eye in blocks()])).values
+    intra_vals = intra_values(e, ids, block_rows)
     p = intra_vals.numel()
     per_block = []
-    for sims, same, eye in blocks():
+    for sims, same, eye in _blocks(e, ids, block_rows):
         intra, inter = same & ~eye, ~same & ~eye
         out = _pair_stats(sims, intra, inter, thresholds)
         out.update(_ranking_stats(sims, same, eye, kmax))

@@ -94,6 +94,27 @@ def _loss_flops(batch: int, dim: int, use_triplet: bool) -> tuple[int, int]:
     return fwd + sim, bwd
 
 
+def _step_forward_flops(model: nn.Module, batch: int, frames: int, frame_size: int,
+                        fast_extracts: bool) -> int:
+    """The full and the extract forwards of a train step, each over 2·batch
+    clips of `frames` frames (with `fast_extracts` the per-frame CNN runs
+    once and the head twice)."""
+    clips = 2 * batch
+    encoders = 1 if fast_extracts else 2
+    return (encoders * clips * frames * frame_flops(model, frame_size)
+            + 2 * clips * head_flops(model, frames))
+
+
+def loss_flops(model: nn.Module, batch: int, frames: int,
+               frame_size: int = FRAME_SIZE, fast_extracts: bool = False,
+               use_triplet: bool = True) -> int:
+    """The train-mode loss alone (training/train_step.py::make_loss_fn, no
+    backward): both forwards, the loss's products and the accuracy's."""
+    dim = model.final_projection[-1].out_features
+    return (_step_forward_flops(model, batch, frames, frame_size, fast_extracts)
+            + _loss_flops(batch, dim, use_triplet)[0])
+
+
 def train_step_flops(model: nn.Module, batch: int, frames: int,
                      frame_size: int = FRAME_SIZE, remat: bool = False,
                      fast_extracts: bool = False, use_triplet: bool = True) -> int:
@@ -111,11 +132,9 @@ def train_step_flops(model: nn.Module, batch: int, frames: int,
     dense (8x the temporal convs' products at the default widths); this
     count does not."""
     clips = 2 * batch
-    enc = clips * frames * frame_flops(model, frame_size)
-    head = clips * head_flops(model, frames)
     conv0 = clips * frames * spatial_conv_flops(model, frame_size)[0]
     encoders = 1 if fast_extracts else 2
-    model_fwd = encoders * enc + 2 * head
+    model_fwd = _step_forward_flops(model, batch, frames, frame_size, fast_extracts)
     model_bwd = 2 * model_fwd - encoders * conv0
     dim = model.final_projection[-1].out_features
     loss_fwd, loss_bwd = _loss_flops(batch, dim, use_triplet)
