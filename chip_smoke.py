@@ -103,16 +103,16 @@ Phases, each of which raises (exit code 1) on any failure:
      one step), held against the same steps in one process (loss, grad
      norm, params, BN statistics); the train CLI for one epoch under
      `python -m torch.distributed.run --standalone --nproc_per_node 1`
-     (NCCL, world 1) and without it, with its artifacts, K1 in validation
-     only and the steps/s of both. Its times are k shards or ranks on one
-     card: the cost of sharding, not a speed-up;
+     (NCCL, world 1), with its artifacts, K1 in validation only and its
+     steps/s. Its times are k shards or ranks on one card: the cost of
+     sharding, not a speed-up;
  12. multiple processes, on the one card: the fused space-to-depth model
      (conv0 a 3x3 stride-1 conv over 2x2 blocks) through the scan's
      batching stage on phase 3's weights and clips against the standard
      fused model (cosine >= 0.9999, K1 launched 4 times per forward), and
      conv0 in both layouts at 64 x 128 frames (CUDA-graph replay); two
-     spawned gloo ranks sharing cuda:0, each regenerating phase 7's data
-     from the seed and staging its half: sharded_topk_search of the 4,096
+     spawned gloo ranks sharing cuda:0, each reading phase 7's data from a
+     file this process writes and staging its half: sharded_topk_search of the 4,096
      queries over the 10^6 x 256 index at k = 20 in f32 and bf16 storage
      and the ring sharded_topk_cosine on the 10^5 self-search, every method
      (exact, certified strict, certified and certified-bf16 at 0.95), held
@@ -122,8 +122,9 @@ Phases, each of which raises (exit code 1) on any failure:
      with each rank's ms, its ms in collectives, the one-process ms and the
      bound; FingerprintIndex.search across the ranks equal to one
      process's; tools/multiproc_dedup.py under `python -m
-     torch.distributed.run --standalone` with 2 gloo ranks on cuda:0 and
-     with 1 rank on NCCL. A rank that fails or hangs fails the phase;
+     torch.distributed.run --standalone` with 2 gloo ranks on cuda:0 and,
+     at the same time, with 1 rank on NCCL. A rank that fails or hangs
+     fails the phase;
  13. the benchmark program (`python -m video_fingerprint_tpu_torch.tools.bench`,
      a budget of BENCH_BUDGET seconds): its legs' subprocesses (the
      reference baseline, the headline at B = 512, T = 128 in bf16 by CUDA
@@ -149,8 +150,10 @@ Phases, each of which raises (exit code 1) on any failure:
      (K1 launched 4 times, against the CPU forward of the same variables),
      then dryrun_multichip(4) over cuda:0 four times (gloo ranks for the
      data-parallel steps), every program against its one-device oracle;
- 16. the measurement tools (tools/*.py), each once on the card as a process
-     of its own at the JAX tools' default sizes: device augment placement
+ 16. the measurement tools (tools/*.py), each once on the card at the JAX
+     tools' default sizes, one after another in one child process
+     (`chip_smoke.py --tools-child`, torch's flags put back and the card
+     settled between tools): device augment placement
      (loader samples/s per mode, steps/s with device augment off and on) and
      the augment hotspot (B = 16, T = 64, ms per stage by CUDA-graph
      replay); train steps/s with a sync every step and every 10 (B = 64,
@@ -161,7 +164,24 @@ Phases, each of which raises (exit code 1) on any failure:
      T = 128, K1 launched once per captured call and equal to the plain
      version; the top-k probes at 10^5 rows (precision, blocked, certified,
      bf16 sims, production: every result verified against exact) and the
-     wide probe at 10^6. Every key present, every rate > 0.
+     wide probe at 10^6; the probes of the headline's input and conv stack
+     at N = 16,384 frames: the uint8 convert by layout alone and feeding
+     conv0 (exp_input_layout), one elementwise pass by layout and the
+     transpose round trip (exp_layout_probe, B = 16, T = 64), the int8 conv
+     stack on the hand-written int8 conv (csrc/conv_int8.cu, K4) against
+     the bf16 cuDNN stack (exp_int8_conv, K4 launched by both int8 legs),
+     and K forwards in one CUDA graph against K dispatched forwards
+     (exp_ingraph_forward, B = 512, T = 128, K1 launched by every forward).
+     Every key present, every rate > 0, no leg that printed an error. Then
+     the in-graph forward's f32 sum against eager forwards, and K4 against
+     its plain version on the probe's four layers (5x5 3 -> 32 on 64x64
+     frames, then 3x3 32 -> 64 -> 128 -> 256) at 256 and 5 frames: the
+     int32 sums and the int8 and bf16 outputs bit for bit; each layer timed
+     at 16,384 frames beside the plain version, its bound, and for conv1
+     torch._int_mm on its im2col matrix and cuDNN's bf16 conv.
+
+Phases 7, 11 and 12 draw the 10^6 index and the self-search rows once and
+compute their float64 oracles once (_index_data, _oracle).
 
 Phase 7 also runs the certified top-k methods ("certified" strict and with
 exact_above = 0.95, "certified-bf16") on the 10^6-row index in both
@@ -190,6 +210,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import hashlib
 import io
@@ -1201,11 +1222,18 @@ def _certified_methods(torch, search, exact_scores, checked, sims, oracle_idx, p
     return out
 
 
-def _index_data():
-    """The index phase's seeded data: 1,000,000 unit rows with 256 planted
-    near copies (src -> dst), 4,096 queries (both sides of every pair, 2,048
-    corpus rows, fresh rows) and the 16 oracle-checked query rows; the
-    generator is returned to draw the self-search rows next."""
+@functools.cache
+def _index_data(path=None):
+    """The index phase's seeded data, made once per process and shared by
+    phases index, multigpu and multiproc: 1,000,000 unit rows with 256
+    planted near copies (src -> dst), 4,096 queries (both sides of every
+    pair, 2,048 corpus rows, fresh rows), the 16 oracle-checked query rows,
+    and the 10^5 self-search rows, row 1000 j + 1 a byte-identical copy of
+    row 1000 j. `path`: an .npz written by _save_index_data, read instead of
+    drawing again (the spawned ranks)."""
+    if path is not None:
+        with np.load(path) as f:
+            return tuple(f[k] for k in INDEX_FIELDS)
     rng = np.random.default_rng(SEED + 5)
     corpus = _unit_rows(rng, INDEX_ROWS)
     src, dst = np.split(rng.choice(INDEX_ROWS, 512, replace=False), 2)
@@ -1217,22 +1245,41 @@ def _index_data():
                               corpus[rng.choice(INDEX_ROWS, 2048, replace=False)],
                               _unit_rows(rng, INDEX_QUERIES - 2560)])
     checked = np.concatenate([np.arange(8), 256 + np.arange(4), 3000 + np.arange(4)])
-    return rng, corpus, src, dst, planted_cos, queries, checked
-
-
-def _self_search_rows(rng):
-    """10^5 seeded unit rows, row 1000 j + 1 a byte-identical copy of row 1000 j."""
     emb = _unit_rows(rng, SELF_SEARCH_ROWS)
     emb[1::1000] = emb[::1000][: len(emb[1::1000])]
-    return emb
+    return corpus, src, dst, planted_cos, queries, checked, emb
+
+
+INDEX_FIELDS = ("corpus", "src", "dst", "planted_cos", "queries", "checked", "self_rows")
+
+
+def _save_index_data(workdir: Path) -> Path:
+    """_index_data() in an .npz under workdir (once), for spawned processes."""
+    path = workdir / "index_data.npz"
+    if not path.exists():
+        np.savez(path, **dict(zip(INDEX_FIELDS, _index_data())))
+    return path
+
+
+@functools.cache
+def _oracle(search: str):
+    """The float64 top-20 (sims, indices) of the oracle-checked rows, made once
+    per process: search "f32" or "bf16" (the 10^6 index in that storage,
+    cosines of the bf16 values) or "self" (16 rows of the 10^5 self-search)."""
+    from video_fingerprint_tpu_torch.inference.index import bf16_bits, bf16_values
+
+    corpus, _, _, _, queries, checked, emb = _index_data()
+    if search == "self":
+        rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
+        return _oracle_topk(emb, emb[rows], 20, cosine=False)
+    cosine = search == "bf16"
+    stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
+    q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
+    return _oracle_topk(stored, q, 20, cosine)
 
 
 def phase_index(torch, workdir: Path, model_path: Path, smi: str):
-    from video_fingerprint_tpu_torch.inference.index import (
-        FingerprintIndex,
-        bf16_bits,
-        bf16_values,
-    )
+    from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
     from video_fingerprint_tpu_torch.ops.topk import topk_cosine, topk_search
     from video_fingerprint_tpu_torch.utils.timing import cuda_ms
 
@@ -1248,7 +1295,7 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         flows[storage] = {**card, "attention_launches": launches["attention"]}
 
     # (b) 1,000,000 seeded unit rows with 256 planted near copies
-    rng, corpus, src, dst, planted_cos, queries, checked = _index_data()
+    corpus, src, dst, planted_cos, queries, checked, emb = _index_data()
     search = {}
     for storage in ("f32", "bf16"):
         index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
@@ -1266,12 +1313,8 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
                 hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
                 require(hits.get(int(other), -1.0) >= 0.99,
                         f"{storage}: planted copy {j} not found ({row})")
-        cosine = storage == "bf16"
-        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
-        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
-        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
+        sims, oracle_idx = _oracle(storage)
         err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx, storage)
-        del stored
         staged = index._corpus()
         q_dev = torch.from_numpy(queries).to(CARD)
         ms = cuda_ms(lambda: topk_search(q_dev, staged, 20, exact_above=0.99))
@@ -1297,11 +1340,10 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
     del corpus
 
     # (c) the scanner's top-k duplicate search at library size
-    emb = _self_search_rows(rng)
     e_dev = torch.from_numpy(emb).to(CARD)
     scores, idx = (t.cpu().numpy() for t in topk_cosine(e_dev, 20, exact_above=0.99))
     rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
-    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    sims, oracle_idx = _oracle("self")
     err = _check_oracle(scores[rows], idx[rows], sims, oracle_idx, "self-search")
     for r in range(0, SELF_SEARCH_ROWS, 1000):
         require(set(idx[r, :2].tolist()) == {r, r + 1},
@@ -2197,12 +2239,11 @@ def _dp_search(torch, smi: str):
     oracle; the certified methods to phase 7's contracts; ms beside the
     single-device exact ms and the bound (the same work: 4 shards on one
     card)."""
-    from video_fingerprint_tpu_torch.inference.index import bf16_bits, bf16_values
     from video_fingerprint_tpu_torch.ops import topk
     from video_fingerprint_tpu_torch.utils.timing import cuda_ms
 
     devices = [CARD] * 4
-    rng, corpus, src, dst, _, queries, checked = _index_data()
+    corpus, src, dst, _, queries, checked, emb = _index_data()
     planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
     out = {}
     for storage in ("f32", "bf16"):
@@ -2218,10 +2259,7 @@ def _dp_search(torch, smi: str):
         diff = float(np.abs(scores - ref_s).max())
         require(diff <= 1e-5, f"sharded {storage}: scores off one card's by {diff}")
         cosine = storage == "bf16"
-        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
-        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
-        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
-        del stored
+        sims, oracle_idx = _oracle(storage)
         err = _check_oracle(scores[checked], idx[checked], sims, oracle_idx, f"sharded {storage}")
         ms = cuda_ms(lambda: topk.sharded_topk_search(q_dev, staged, 20))
         single_ms = cuda_ms(lambda: topk.topk_search(q_dev, single, 20))
@@ -2242,7 +2280,6 @@ def _dp_search(torch, smi: str):
         torch.cuda.empty_cache()
     del corpus
 
-    emb = _self_search_rows(rng)
     e_dev = torch.from_numpy(emb).to(CARD)
     scores, idx = (t.cpu().numpy() for t in topk.sharded_topk_cosine(e_dev, 20,
                                                                       devices=devices))
@@ -2251,7 +2288,7 @@ def _dp_search(torch, smi: str):
     diff = float(np.abs(scores - ref_s).max())
     require(diff <= 1e-5, f"ring: scores off one card's by {diff}")
     rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
-    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    sims, oracle_idx = _oracle("self")
     err = _check_oracle(scores[rows], idx[rows], sims, oracle_idx, "ring")
     staged = topk.stage_sharded_corpus(emb, devices)
     ms = cuda_ms(lambda: topk.sharded_topk_cosine(staged, 20), window_ms=500)
@@ -2451,9 +2488,9 @@ sys.exit(rc)
 def _nccl_cli(torch, workdir: Path, smi: str):
     """The train CLI for one epoch of phase 8's 16-video corpus under
     `python -m torch.distributed.run --standalone --nproc_per_node 1` (NCCL,
-    world 1) and without the launcher, each in its own process through a
-    shim that counts K1's launches and times the train epoch: the artifacts
-    (rank 0's), K1 in validation only, steps/s of both."""
+    world 1), through a shim that counts K1's launches and times the train
+    epoch: the artifacts (rank 0's), K1 in validation only, steps/s. (The
+    CLI without the launcher runs in phases train and augment.)"""
     from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
 
     videos = workdir / "train_videos"
@@ -2462,32 +2499,29 @@ def _nccl_cli(torch, workdir: Path, smi: str):
     shim = workdir / "train_cli_shim.py"
     shim.write_text(_CLI_SHIM)
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-    runs = {}
-    for mode in ("nccl_world1", "plain"):
-        stats = workdir / f"{mode}.json"
-        args = [str(shim), str(stats), "--data_dir", str(videos), "--batch_size", "4",
-                "--num_workers", "4", "--max_frames", "64", "--epochs", "1",
-                "--run_name", mode]
-        launcher = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
-                    if mode == "nccl_world1" else [])
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *launcher, *args], cwd=workdir, env=env,
-                              capture_output=True, text=True, timeout=600)
-        require(proc.returncode == 0,
-                f"train CLI ({mode}) exited {proc.returncode}: {proc.stderr[-2000:]}")
-        s = json.loads(stats.read_text())
-        run = workdir / "runs" / mode
-        for name in ("config.json", "training_info.txt", "training_log.txt",
-                     "training_summary.txt", "checkpoints/last.ckpt", "checkpoints/best.ckpt"):
-            require((run / name).exists(), f"train CLI ({mode}) left no {name}")
-        require(s["launches"].get("validate", 0) > 0, f"{mode}: validation did not run K1")
-        require(s["launches"].get("train_epoch", 0) == 0, f"{mode}: a train step ran K1")
-        runs[mode] = {"backend": s["backend"], "world": s["world"], "steps": s["steps"],
-                      "train_epoch_s": s["seconds"]["train_epoch"],
-                      "steps_per_s": s["steps"] / s["seconds"]["train_epoch"],
-                      "attention_launches": s["launches"], "process_s": time.perf_counter() - t0}
-    require(runs["nccl_world1"]["backend"] == "nccl" and runs["nccl_world1"]["world"] == 1,
-            f"the launched CLI did not join an NCCL group: {runs['nccl_world1']}")
+    mode = "nccl_world1"
+    stats = workdir / f"{mode}.json"
+    args = [str(shim), str(stats), "--data_dir", str(videos), "--batch_size", "4",
+            "--num_workers", "4", "--max_frames", "64", "--epochs", "1", "--run_name", mode]
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *launcher, *args], cwd=workdir, env=env,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"train CLI ({mode}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+    s = json.loads(stats.read_text())
+    run = workdir / "runs" / mode
+    for name in ("config.json", "training_info.txt", "training_log.txt",
+                 "training_summary.txt", "checkpoints/last.ckpt", "checkpoints/best.ckpt"):
+        require((run / name).exists(), f"train CLI ({mode}) left no {name}")
+    require(s["launches"].get("validate", 0) > 0, f"{mode}: validation did not run K1")
+    require(s["launches"].get("train_epoch", 0) == 0, f"{mode}: a train step ran K1")
+    require(s["backend"] == "nccl" and s["world"] == 1,
+            f"the launched CLI did not join an NCCL group: {s}")
+    runs = {mode: {"backend": s["backend"], "world": s["world"], "steps": s["steps"],
+                   "train_epoch_s": s["seconds"]["train_epoch"],
+                   "steps_per_s": s["steps"] / s["seconds"]["train_epoch"],
+                   "attention_launches": s["launches"], "process_s": time.perf_counter() - t0}}
     emit({"phase": "multigpu", "check": "nccl_cli", "smi": smi, **runs})
     return runs
 
@@ -2542,10 +2576,10 @@ def _wall_ms(torch, fn, repeats: int = MP_REPEATS):
             (distributed.collective_seconds - c0) * 1e3 / repeats)
 
 
-def _mp_rank(rank: int, world: int, port: int, out_path: str) -> None:
+def _mp_rank(rank: int, world: int, port: int, out_path: str, data_path: str) -> None:
     """One rank of the cross-process search (a spawned process): joins a
     gloo group through the launcher's environment, both ranks on cuda:0,
-    regenerates phase 7's data from the seed, stages its block, and runs
+    reads phase 7's data from the parent's file, stages its block, and runs
     every search of the phase with its results and times."""
     import torch
 
@@ -2557,7 +2591,7 @@ def _mp_rank(rank: int, world: int, port: int, out_path: str) -> None:
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     maybe_initialize_distributed(CARD, backend="gloo")
-    rng, corpus, _, _, _, queries, _ = _index_data()
+    corpus, _, _, _, queries, _, emb = _index_data(data_path)
     q_dev = torch.from_numpy(queries).to(CARD)
     out = {"backend": torch.distributed.get_backend(), "searches": {}, "held": {}}
 
@@ -2587,7 +2621,7 @@ def _mp_rank(rank: int, world: int, port: int, out_path: str) -> None:
         del index
         torch.cuda.empty_cache()
     del corpus
-    staged = topk.stage_sharded_corpus(_self_search_rows(rng), [CARD])
+    staged = topk.stage_sharded_corpus(emb, [CARD])
     run("ring", staged, lambda c, m, thr: topk.sharded_topk_cosine(
         c, 20, exact_above=thr, method=m))
     torch.distributed.destroy_process_group()
@@ -2602,7 +2636,8 @@ def _mp_spawn(torch, workdir: Path):
     ctx = multiprocessing.get_context("spawn")
     port = _free_port()
     outs = [workdir / f"mp_rank{r}.pt" for r in range(MP_RANKS)]
-    procs = [ctx.Process(target=_mp_rank, args=(r, MP_RANKS, port, str(outs[r])))
+    data = str(_save_index_data(workdir))
+    procs = [ctx.Process(target=_mp_rank, args=(r, MP_RANKS, port, str(outs[r]), data))
              for r in range(MP_RANKS)]
     t0 = time.perf_counter()
     for p in procs:
@@ -2622,14 +2657,10 @@ def _mp_references(torch):
     """The one-process searches on the card that the ranks are held to:
     for each storage and method the result and its ms, exact's float64
     oracle on the checked rows, and the one-process index's answer."""
-    from video_fingerprint_tpu_torch.inference.index import (
-        FingerprintIndex,
-        bf16_bits,
-        bf16_values,
-    )
+    from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
     from video_fingerprint_tpu_torch.ops import topk
 
-    rng, corpus, src, dst, _, queries, checked = _index_data()
+    corpus, src, dst, _, queries, checked, emb = _index_data()
     planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
     q_dev = torch.from_numpy(queries).to(CARD)
     refs = {}
@@ -2649,11 +2680,7 @@ def _mp_references(torch):
     for storage in ("f32", "bf16"):
         dtype = torch.bfloat16 if storage == "bf16" else torch.float32
         single = topk.stage_corpus(corpus, CARD, dtype)
-        cosine = storage == "bf16"
-        stored = bf16_values(bf16_bits(corpus)) if cosine else corpus
-        q = bf16_values(bf16_bits(queries[checked])) if cosine else queries[checked]
-        sims, oracle_idx = _oracle_topk(stored, q, 20, cosine)
-        del stored
+        sims, oracle_idx = _oracle(storage)
         run(storage, lambda m, thr: topk.topk_search(q_dev, single, 20, exact_above=thr,
                                                      method=m),
             checked, sims, oracle_idx, planted,
@@ -2666,10 +2693,9 @@ def _mp_references(torch):
         del index
         torch.cuda.empty_cache()
     del corpus
-    emb = _self_search_rows(rng)
     e_dev = torch.from_numpy(emb).to(CARD)
     rows = np.arange(0, SELF_SEARCH_ROWS, SELF_SEARCH_ROWS // 16)
-    sims, oracle_idx = _oracle_topk(emb, emb[rows], 20, cosine=False)
+    sims, oracle_idx = _oracle("self")
     run("ring", lambda m, thr: topk.topk_cosine(e_dev, 20, exact_above=thr, method=m),
         rows, sims, oracle_idx, [(r, r + 1) for r in range(0, SELF_SEARCH_ROWS, 1000)],
         _search_bound_ms(SELF_SEARCH_ROWS, SELF_SEARCH_ROWS, emb.nbytes))
@@ -2746,22 +2772,31 @@ def _mp_search(torch, workdir: Path, smi: str):
 
 def _mp_worker(torch, smi: str):
     """tools/multiproc_dedup.py under torch.distributed.run: two gloo ranks
-    sharing cuda:0, and one rank on NCCL; each rank must print its OK line."""
+    sharing cuda:0, and one rank on NCCL, the two launches at once (each
+    launcher picks its own free port); each rank must print its OK line."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    procs = {name: (nproc, subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(nproc), "-m", "video_fingerprint_tpu_torch.tools.multiproc_dedup", *extra],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, nproc, extra in (("gloo_2_ranks_one_card", 2,
+                                    ["--device", "cuda:0", "--backend", "gloo"]),
+                                   ("nccl_1_rank", 1, []))}
     runs = {}
-    for name, nproc, extra in (("gloo_2_ranks_one_card", 2,
-                                ["--device", "cuda:0", "--backend", "gloo"]),
-                               ("nccl_1_rank", 1, [])):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             str(nproc), "-m", "video_fingerprint_tpu_torch.tools.multiproc_dedup", *extra],
-            env=env, capture_output=True, text=True, timeout=300)
-        ok = proc.stdout.count(f"sharded dedup over {nproc} processes OK")
-        require(proc.returncode == 0 and ok == nproc,
-                f"multiproc_dedup ({name}) exited {proc.returncode}, {ok} OK lines: "
-                f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
-        runs[name] = {"ranks": nproc, "seconds": time.perf_counter() - t0}
+    try:
+        for name, (nproc, proc) in procs.items():
+            out, err = proc.communicate(timeout=300)
+            ok = out.count(f"sharded dedup over {nproc} processes OK")
+            require(proc.returncode == 0 and ok == nproc,
+                    f"multiproc_dedup ({name}) exited {proc.returncode}, {ok} OK lines: "
+                    f"{out[-1500:]} {err[-1500:]}")
+            runs[name] = {"ranks": nproc, "seconds": time.perf_counter() - t0}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     emit({"phase": "multiproc", "check": "worker", "smi": smi, **runs})
     return runs
 
@@ -3048,19 +3083,19 @@ def _require_keys(what: str, row: dict, keys, positive=()) -> None:
     require(not bad, f"{what}: {[(k, row[k]) for k in bad]} not > 0")
 
 
-def _tools_buckets(seconds: dict) -> dict:
+BUCKET_RUNS = (("buckets", ["--dim", "32", "4", "16", "64"]),
+               ("b64_t128", ["--batch", "64", "--buckets", "128", "--dim", "4", "16", "64"]))
+
+
+def _tools_buckets(tools: dict) -> dict:
     """exp_attention_buckets at every scan bucket (B·H = 16 x 8) and D = 32,
     4, 16, 64, f32 and bf16; and at the attention phase's B = 64 x 8, T =
     128 for D = 4, 16, 64 (the §6 K1 row's shape). Every row: K1 launched
     BUCKET_REPS times per replay, K1 within 1e-5 (f32) or 2e-2 (bf16) of the
     plain version, three device times > 0."""
-    dtypes = ("float32", "bfloat16")
     out = {}
-    for tag, args in (("buckets", ["--dim", "32", "4", "16", "64"]),
-                      ("b64_t128", ["--batch", "64", "--buckets", "128",
-                                    "--dim", "4", "16", "64"])):
-        lines, seconds[f"exp_attention_buckets_{tag}"] = _tool(
-            "exp_attention_buckets", *args, "--dtype", *dtypes, "--reps", str(BUCKET_REPS))
+    for tag, _ in BUCKET_RUNS:
+        lines = tools[f"exp_attention_buckets_{tag}"]["lines"]
         table = lines[-1]["table"]
         require(len(table) == len(lines) - 1 and "decision" in lines[-1],
                 f"buckets {tag}: {lines[-1]}")
@@ -3078,15 +3113,251 @@ def _tools_buckets(seconds: dict) -> dict:
     return out
 
 
-def phase_tools(torch, workdir: Path, smi: str):
-    """The thirteen measurement tools of tools/, each once on the card in a
-    process of its own at the JAX tools' default sizes (the trajectory
-    corpus, which needs no card, at 24 videos, beside the first tool), each
-    JSON checked: every key there, every rate > 0, the top-k probes'
-    results verified against exact, K1 in the bucket probe launched once per
-    captured call and equal to the plain version, the corpus stamped."""
+K4_CHECK_FRAMES = (256, 5)  # K4 held bit for bit against the plain version (5: ragged tiles)
+K4_FRAMES = 16_384          # K4 timed at exp_int8_conv's N
+INT8_PEAK_OPS = 1979e12     # dense int8, H100 SXM data sheet, 700 W
+
+
+def _k4_bound_ms(n: int, h: int, k: int, cin: int, cout: int, out_bytes: int):
+    """Least time for one K4 layer on n frames: the input, the weights,
+    scales and bias read once and the output written once, against its
+    int8 products at the peak rate."""
+    ho = (h + 2 * (k // 2) - k) // 2 + 1
+    nbytes = n * h * h * cin + k * k * cin * cout + 8 * cout + n * ho * ho * cout * out_bytes
+    ops = 2 * n * ho * ho * cout * k * k * cin
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_PEAK_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k4(torch, smi: str) -> dict:
+    """K4 (csrc/conv_int8.cu) on the probe's four layers and weights: its
+    int32 sums and its int8 and bf16 outputs equal to the plain version's
+    bit for bit at K4_CHECK_FRAMES frames (each layer fed the one before,
+    conv0 fed uint8 frames and the same frames shifted to int8); then each
+    layer of the int8 stack timed at K4_FRAMES by CUDA-graph replay beside
+    the plain version and its bound, and, for conv1, torch._int_mm on its
+    im2col matrix alone and cuDNN's bf16 conv of the same shape."""
+    from video_fingerprint_tpu_torch.ops import conv_int8 as ci
+    from video_fingerprint_tpu_torch.tools import exp_int8_conv as eic
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+
+    card = torch.device(CARD)
+    rng = np.random.default_rng(SEED)
+    ws_f, bs_f, ws_q, w_scales, a_scales = eic.probe_weights(rng)
+    layers = eic.int8_layers(ws_q, w_scales, bs_f, a_scales, card)
+    worst, checked = 0.0, []
+    for n in K4_CHECK_FRAMES:
+        frames = torch.from_numpy(rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8)).to(card)
+        shifted = (frames.to(torch.int16) - 128).to(torch.int8)
+        x = frames
+        for i, ((k, cin, cout), (pw, w_scale, bias, requant)) in enumerate(
+                zip(eic.SPECS, layers)):
+            inputs = (x, shifted) if i == 0 else (x,)
+            for xin in inputs:
+                what = f"K4 conv{i} ({k}x{k}, {cin} -> {cout}) N={n} {xin.dtype}"
+                got = ci.conv_int8_acc(xin, pw)
+                ref = ci.conv_acc_plain(xin, pw)
+                require(torch.equal(got, ref), f"{what}: int32 sums differ from the plain "
+                        f"version by {(got - ref).abs().max().item()}")
+                outs = {}
+                for rq in (requant, None):
+                    got = ci.conv_int8(xin, pw, w_scale, bias, rq)
+                    ref = ci.conv_int8_plain(xin, pw, w_scale, bias, rq)
+                    err = (got.float() - ref.float()).abs().max().item()
+                    worst = max(worst, err)
+                    require(got.dtype == ref.dtype and torch.equal(got, ref),
+                            f"{what}: {got.dtype} output off the plain version by {err}")
+                    outs[rq is None] = got
+                checked.append(what)
+            x = outs[False]  # the int8 output feeds the next layer
+    torch.cuda.synchronize()
+
+    x = torch.from_numpy(rng.integers(0, 256, (K4_FRAMES, 64, 64, 3), dtype=np.uint8)).to(card)
+    rows, library = [], {}
+    for i, ((k, cin, cout), (pw, w_scale, bias, requant)) in enumerate(zip(eic.SPECS, layers)):
+        rq = None if i == len(layers) - 1 else requant
+        h = x.shape[1]
+        ms = graph_ms(lambda: ci.conv_int8(x, pw, w_scale, bias, rq))
+        plain_ms = graph_ms(lambda: ci.conv_int8_plain(x, pw, w_scale, bias, rq), calls=3)
+        bound_ms, bound_by = _k4_bound_ms(K4_FRAMES, h, k, cin, cout, 2 if rq is None else 1)
+        rows.append({"layer": f"conv{i}", "k": k, "cin": cin, "cout": cout, "in": h,
+                     "out_dtype": "bfloat16" if rq is None else "int8", "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "x_bound": ms / bound_ms})
+        if i == 1:
+            cols = ci.im2col(x, k).contiguous()
+            wmat = pw.matrix[:, :k * k * cin].t().contiguous()
+            library["int_mm_conv1_im2col_ms"] = graph_ms(lambda: torch._int_mm(cols, wmat))
+            del cols
+            xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+            wb = torch.from_numpy(ws_f[1]).permute(3, 2, 0, 1).to(card, torch.bfloat16)
+            wb = wb.contiguous(memory_format=torch.channels_last)
+            bb = torch.from_numpy(bs_f[1]).to(card, torch.bfloat16)
+            library["cudnn_bf16_conv1_ms"] = graph_ms(
+                lambda: torch.relu(torch.nn.functional.conv2d(xb, wb, bb, stride=2, padding=1)))
+            del xb
+        x = ci.conv_int8(x, pw, w_scale, bias, rq)
+        torch.cuda.synchronize()
+    row = {"frames_checked": list(K4_CHECK_FRAMES), "checked": checked, "max_abs_err": worst,
+           "frames": K4_FRAMES, "layers": rows, "ms": sum(r["ms"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] for r in rows),
+           "bound_by": "+".join(sorted({r["bound_by"] for r in rows})),
+           "library_ms": library["int_mm_conv1_im2col_ms"],
+           "library": "torch._int_mm on conv1's im2col matrix alone (conv1 only, no im2col, "
+                      "no epilogue)",
+           "library_cudnn_bf16_conv1_ms": library["cudnn_bf16_conv1_ms"],
+           "library_cudnn_note": "cuDNN bf16 conv1 + bias + ReLU, channels-last, same shape"}
+    emit({"phase": "tools", "check": "k4", "smi": smi, **row})
+    return row
+
+
+TOOLS_CHILD_TIMEOUT_S = 1500
+INT8_K = 20     # exp_int8_conv's iterations per graph (EXP_K)
+INGRAPH_K = 12  # exp_ingraph_forward's forwards per graph (EXP_K)
+INGRAPH_REPS = 3
+
+
+def _tool_runs(workdir: Path) -> list:
+    """The card tools of phase `tools` in their order, each as [key, module
+    of video_fingerprint_tpu_torch.tools, argv, environment]: the JAX tools'
+    default sizes."""
+    runs = [["exp_augment_hotspot", "exp_augment_hotspot", [], {}],
+            ["bench_device_augment", "bench_device_augment",
+             ["--cache-dir", str(workdir / "augbench")], {}],
+            ["bench_train_step_float32", "bench_train_step", [], {}],
+            ["bench_train_step_bfloat16", "bench_train_step", ["--bf16"], {}],
+            ["exp_train_roofline", "exp_train_roofline", [], {}],
+            ["bench_streaming_metrics", "bench_streaming_metrics", [], {}]]
+    runs += [[f"exp_attention_buckets_{tag}", "exp_attention_buckets",
+              [*args, "--dtype", "float32", "bfloat16", "--reps", str(BUCKET_REPS)], {}]
+             for tag, args in BUCKET_RUNS]
+    runs += [[name, name, [], {}] for name in (
+        "exp_topk_precision", "exp_topk_blocked", "exp_topk_cert", "exp_topk_bf16sims",
+        "exp_topk_production", "exp_wide_topk", "exp_int8_conv", "exp_input_layout",
+        "exp_layout_probe", "exp_ingraph_forward")]
+    return runs
+
+
+def _torch_flags(torch, flags=None):
+    """torch's global flags that a tool may set (TF32 for matmuls and convs,
+    cudnn.benchmark, the default dtype): their values, after setting them
+    to `flags` when given."""
+    if flags is not None:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.benchmark, dtype) = flags
+        torch.set_default_dtype(dtype)
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.benchmark, torch.get_default_dtype())
+
+
+def _tools_child(spec_path: str, out_path: str) -> int:
+    """The child process of phase `tools`: each run of the spec file (see
+    _tool_runs) in turn, in this one process, as main(argv) of its module
+    with its environment set and its standard output captured; K1's and
+    K4's launch counts set to 0 before it and read after it; torch's flags
+    put back and the card settled after it. Each run's output, seconds,
+    counts and error (a traceback, or None) go to out_path, rewritten after
+    every run."""
+    import importlib
+    import traceback
+
+    import torch
+
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.ops import conv_int8 as ci
+
+    results = []
+    for key, module, argv, env in json.loads(Path(spec_path).read_text()):
+        flags = _torch_flags(torch)
+        saved_env = {name: os.environ.get(name) for name in env}
+        os.environ.update(env)
+        attn.launches = 0
+        ci.launches["conv_int8"] = 0
+        out, error, t0 = io.StringIO(), None, time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = importlib.import_module(
+                    f"video_fingerprint_tpu_torch.tools.{module}").main(argv)
+            torch.cuda.synchronize()
+            if rc:
+                error = f"main returned {rc}"
+        except (Exception, SystemExit):  # noqa: BLE001 - the parent fails the phase on it
+            error = traceback.format_exc()[-4000:]
+        seconds = time.perf_counter() - t0
+        launches = {"attention": attn.launches, "conv_int8": ci.launches["conv_int8"]}
+        for name, value in saved_env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        _torch_flags(torch, flags)
+        _settle(torch)
+        results.append({"key": key, "stdout": out.getvalue(), "seconds": seconds,
+                        "launches": launches, "error": error})
+        Path(out_path).write_text(json.dumps(results))
+    return 0
+
+
+def _run_tools(workdir: Path, runs: list) -> tuple[dict, float]:
+    """The runs in one child process (`chip_smoke.py --tools-child`): {key:
+    {"lines": its JSON lines, "seconds", "launches"}} and the child's
+    seconds. A run that raised, or a child that failed, fails the phase."""
+    spec, out_path = workdir / "tools_spec.json", workdir / "tools_out.json"
+    spec.write_text(json.dumps(runs))
     t0 = time.perf_counter()
-    seconds, res = {}, {}
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tools-child",
+                           str(spec), str(out_path)], capture_output=True, text=True,
+                          timeout=TOOLS_CHILD_TIMEOUT_S, cwd=Path(__file__).resolve().parent)
+    results = json.loads(out_path.read_text()) if out_path.exists() else []
+    failed = {r["key"]: r["error"] for r in results if r["error"]}
+    require(proc.returncode == 0 and not failed and len(results) == len(runs),
+            f"tools child exited {proc.returncode} after {len(results)} of {len(runs)} runs; "
+            f"failed: {failed}; {proc.stderr[-2500:]}")
+    tools = {}
+    for r in results:
+        lines = [json.loads(line) for line in r["stdout"].splitlines() if line.startswith("{")]
+        require(bool(lines), f"tool {r['key']} printed no JSON line")
+        tools[r["key"]] = {"lines": lines, "seconds": r["seconds"], "launches": r["launches"]}
+    return tools, time.perf_counter() - t0
+
+
+def _ingraph_f32(torch) -> dict:
+    """exp_ingraph_forward's in-graph sum on the card in f32 (TF32 off, the
+    seeded fused model, 2 batches of 8 videos x 16 frames, 4 forwards)
+    against the same 4 forwards run eagerly: within 1e-4 (relative past 1)."""
+    from video_fingerprint_tpu_torch.tools import exp_ingraph_forward as eif
+    from video_fingerprint_tpu_torch.tools.bench_headline import fused_model
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+
+    card = torch.device(CARD)
+    model = fused_model(SEED, card, torch.float32)
+    staged = eif.staged_batches(SEED, 8, 16, card)
+    with torch.no_grad(), full_fp32():
+        got = eif.ingraph_sum(model, staged, 8, 4)
+        ref = sum(float(model.forward_flat(staged[i % eif.N_STAGED], 8).sum(dtype=torch.float32))
+                  for i in range(4))
+    require(abs(got - ref) <= 1e-4 * max(1.0, abs(ref)),
+            f"exp_ingraph_forward: in-graph sum {got} against eager {ref}")
+    return {"ingraph_sum_f32": got, "eager_sum_f32": ref}
+
+
+def phase_tools(torch, workdir: Path, smi: str):
+    """The measurement tools of tools/ at the JAX tools' default sizes: the
+    card tools one after another in one child process (_tool_runs), the
+    trajectory corpus (no card, 24 videos) in a process beside it; each
+    JSON checked: every key there, every rate > 0, no leg that printed an
+    error, the top-k probes' results verified against exact, K1 in the
+    bucket probe launched once per captured call and equal to the plain
+    version, K1 and K4 launched by the forward and int8 probes as many
+    times as their legs make, the corpus stamped. Then the in-graph
+    forward's f32 sum against eager forwards (_ingraph_f32), and K4 against
+    its plain version and timed (_k4)."""
+    from video_fingerprint_tpu_torch.tools import exp_int8_conv as eic
+
+    t0 = time.perf_counter()
+    res = {}
     traj = workdir / "trajectory"
     corpus = subprocess.Popen(
         [sys.executable, "-m", "video_fingerprint_tpu_torch.tools.make_trajectory_corpus",
@@ -3094,14 +3365,8 @@ def phase_tools(torch, workdir: Path, smi: str):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=Path(__file__).resolve().parent)
     try:
-        lines, seconds["exp_augment_hotspot"] = _tool("exp_augment_hotspot")
-        row = res["exp_augment_hotspot"] = lines[-1]
-        stages = ("color", "flip", "noise", "blur", "letterbox_overlay", "rotation",
-                  "full_pipeline")
-        keys = [f"{s}_ms_per_iter" for s in stages]
-        _require_keys("augment hotspot", row, keys + ["batch", "frames", "k"], keys)
-        require((row["batch"], row["frames"]) == (16, 64), f"augment hotspot: {row}")
-        out, err = corpus.communicate(timeout=TOOL_TIMEOUT_S)
+        tools, child_s = _run_tools(workdir, _tool_runs(workdir))
+        _, err = corpus.communicate(timeout=TOOL_TIMEOUT_S)
     finally:
         if corpus.poll() is None:
             corpus.kill()
@@ -3112,35 +3377,41 @@ def phase_tools(torch, workdir: Path, smi: str):
     require(stamp == f"{TRAJECTORY_VIDEOS}:48:160:100" and len(videos) == TRAJECTORY_VIDEOS,
             f"trajectory corpus: stamp {stamp!r}, {len(videos)} videos")
     res["make_trajectory_corpus"] = {"stamp": stamp, "videos": len(videos)}
-    seconds["make_trajectory_corpus_beside_hotspot"] = time.perf_counter() - t0
+    seconds = {key: t["seconds"] for key, t in tools.items()}
+    seconds["tools_child"] = child_s
 
-    lines, seconds["bench_device_augment"] = _tool(
-        "bench_device_augment", "--cache-dir", str(workdir / "augbench"))
-    row = res["bench_device_augment"] = lines[-1]
+    def last(key):
+        return tools[key]["lines"][-1]
+
+    row = res["exp_augment_hotspot"] = last("exp_augment_hotspot")
+    stages = ("color", "flip", "noise", "blur", "letterbox_overlay", "rotation",
+              "full_pipeline")
+    keys = [f"{s}_ms_per_iter" for s in stages]
+    _require_keys("augment hotspot", row, keys + ["batch", "frames", "k"], keys)
+    require((row["batch"], row["frames"]) == (16, 64), f"augment hotspot: {row}")
+
+    row = res["bench_device_augment"] = last("bench_device_augment")
     rates = ("loader_samples_per_sec_host_augment", "loader_samples_per_sec_device_mode",
              "train_steps_per_sec_augment_off", "train_steps_per_sec_device_augment")
     _require_keys("device augment", row, rates + ("loader_speedup",
                                                   "device_augment_step_overhead_pct",
                                                   "step_batch", "step_frames"), rates)
 
-    for dtype, extra in (("float32", ()), ("bfloat16", ("--bf16",))):
-        lines, seconds[f"bench_train_step_{dtype}"] = _tool("bench_train_step", *extra)
-        row = res[f"bench_train_step_{dtype}"] = lines[-1]
+    for dtype in ("float32", "bfloat16"):
+        row = res[f"bench_train_step_{dtype}"] = last(f"bench_train_step_{dtype}")
         rates = ("steps_per_sec_sync_every_step", "steps_per_sec_sync_every_10")
         _require_keys(f"train step {dtype}", row, rates + ("speedup", "device"), rates)
         require((row["batch"], row["frames"], row["dtype"]) == (64, 64, dtype),
                 f"train step: {row}")
 
-    lines, seconds["exp_train_roofline"] = _tool("exp_train_roofline")
-    row = res["exp_train_roofline"] = lines[-1]
+    row = res["exp_train_roofline"] = last("exp_train_roofline")
     rates = ("step_base_steps_per_sec_dispatched", "step_reuse_steps_per_sec_dispatched",
              "fwd_base_per_sec_dispatched", "fwd_reuse_per_sec_dispatched")
     _require_keys("train roofline", row, rates + (
         "bwd_opt_ms_base", "bwd_opt_ms_reuse", "reuse_step_speedup", "reuse_fwd_speedup",
         "step_base_mfu_dispatched", "step_base_tflops", "flops_source"), rates)
 
-    lines, seconds["bench_streaming_metrics"] = _tool("bench_streaming_metrics")
-    row = res["bench_streaming_metrics"] = lines[-1]
+    row = res["bench_streaming_metrics"] = last("bench_streaming_metrics")
     _require_keys("streaming metrics", row, (
         "streaming_metrics_n", "streaming_metrics_s", "auc_roc", "R@1", "mAP",
         "separation_gap", "block_rows", "device_mem_per_block_mb", "dense_equivalent_mb"),
@@ -3148,10 +3419,9 @@ def phase_tools(torch, workdir: Path, smi: str):
     require(row["streaming_metrics_n"] == 100_000 and row["auc_roc"] <= 1.0,
             f"streaming metrics: {row}")
 
-    res["exp_attention_buckets"] = _tools_buckets(seconds)
+    res["exp_attention_buckets"] = _tools_buckets(tools)
 
-    lines, seconds["exp_topk_precision"] = _tool("exp_topk_precision")
-    row = res["exp_topk_precision"] = lines[-1]
+    row = res["exp_topk_precision"] = last("exp_topk_precision")
     for name in ("HIGHEST", "HIGH", "DEFAULT"):
         _require_keys(f"precision {name}", row[name], ("qps", "median_s"), ("qps",))
     for name in ("HIGH", "DEFAULT"):
@@ -3159,24 +3429,21 @@ def phase_tools(torch, workdir: Path, smi: str):
             "max_abs_score_delta", "topk_index_agreement", "decision_mismatch@0.95",
             "decision_mismatch@0.99"))
 
-    lines, seconds["exp_topk_blocked"] = _tool("exp_topk_blocked")
-    row = res["exp_topk_blocked"] = lines[-1]
+    row = res["exp_topk_blocked"] = last("exp_topk_blocked")
     for name in ("maxonly", "single_topk", "blocked_exact", "approx_0.95"):
         _require_keys(f"blocked {name}", row[name], ("qps", "median_s"), ("qps",))
     require(row["blocked_equals_exact"] and row["blocked_max_score_delta"] == 0.0,
             f"blocked two-stage differs from exact: {row}")
     require(0 < row["approx_recall_measured"] <= 1, f"blocked: {row}")
 
-    lines, seconds["exp_topk_cert"] = _tool("exp_topk_cert")
-    row = res["exp_topk_cert"] = lines[-1]
+    row = res["exp_topk_cert"] = last("exp_topk_cert")
     for recall in (0.95, 0.99, 0.999):
         r = row[f"certified@{recall}"]
         _require_keys(f"cert {recall}", r, ("qps", "cert_fail_frac", "blocks_failed",
                                              "effective_qps_with_rerun"), ("qps",))
         require(r["cert_rows_exact"], f"certified@{recall}: certified rows not exact: {r}")
 
-    lines, seconds["exp_topk_bf16sims"] = _tool("exp_topk_bf16sims")
-    row = res["exp_topk_bf16sims"] = lines[-1]
+    row = res["exp_topk_bf16sims"] = last("exp_topk_bf16sims")
     for variant in ("max", "approx", "counts"):
         for store in ("f32", "bf16"):
             _require_keys(f"bf16sims {variant}_{store}", row["results"][f"{variant}_{store}"],
@@ -3186,8 +3453,7 @@ def phase_tools(torch, workdir: Path, smi: str):
                 f"bf16sims: the {store} certificate missed an element above the threshold")
     require(row["results"]["production_certified_bf16"]["qps"] > 0, f"bf16sims: {row}")
 
-    lines, seconds["exp_topk_production"] = _tool("exp_topk_production")
-    row = res["exp_topk_production"] = lines[-1]
+    row = res["exp_topk_production"] = last("exp_topk_production")
     for recall in (0.95, 0.99):
         require(row[f"certified_strict@r{recall}"]["strict_exact"],
                 f"production strict@{recall}: {row[f'certified_strict@r{recall}']}")
@@ -3195,13 +3461,49 @@ def phase_tools(torch, workdir: Path, smi: str):
                 f"production thr@{recall}: {row[f'certified_thr@r{recall}']}")
     require(row["exact"]["qps"] > 0, f"production: {row}")
 
-    lines, seconds["exp_wide_topk"] = _tool("exp_wide_topk")
-    row = res["exp_wide_topk"] = lines[-1]
+    row = res["exp_wide_topk"] = last("exp_wide_topk")
     legs = [f"block{qb}_{stage}" for qb in (256, 1024) for stage in ("sims", "chunked")]
     legs += [f"exact_search_qb{qb}_64k" for qb in (256, 1024)]
     for name in legs:
         _require_keys(f"wide {name}", row[name], ("ms", "peak_mem_gb"), ("ms", "peak_mem_gb"))
 
+
+    # the probes of the headline's input and conv stack
+    row = res["exp_int8_conv"] = last("exp_int8_conv")
+    require(sorted(row) == sorted(eic.LEGS), f"int8 conv: keys {sorted(row)}")
+    _require_keys("int8 conv", row, eic.LEGS, eic.LEGS)
+    k4_launches = tools["exp_int8_conv"]["launches"]["conv_int8"]
+    require(k4_launches == 2 * INT8_K * (1 + len(eic.SPECS)),
+            f"int8 conv: K4 launched {k4_launches} times, not 2 x {INT8_K} per layer and leg")
+    row = res["exp_input_layout"] = last("exp_input_layout")
+    legs = ("c3_convert_ms", "flat_convert_ms", "flat_reshape_ms", "c3_conv0_ms",
+            "flat_conv0_ms")
+    require(sorted(row) == sorted(legs), f"input layout: keys {sorted(row)}")
+    _require_keys("input layout", row, legs, legs)
+    row = res["exp_layout_probe"] = last("exp_layout_probe")
+    legs = ("mult_nhwc_ms", "mult_nchw_ms", "transpose_roundtrip_ms")
+    require(sorted(row) == sorted(("batch", "frames", "k") + legs)
+            and (row["batch"], row["frames"], row["k"]) == (16, 64, 16),
+            f"layout probe: {row}")
+    _require_keys("layout probe", row, legs, legs)
+    first, row = tools["exp_ingraph_forward"]["lines"][0], last("exp_ingraph_forward")
+    rates = ("ingraph_ms_per_batch", "ingraph_vps", "pipelined_ms_per_batch", "pipelined_vps",
+             "ingraph_over_pipelined")
+    require(sorted(row) == sorted(rates) and len(first["reps_s"]) == INGRAPH_REPS
+            and first["ingraph"] == row["ingraph_vps"], f"ingraph forward: {first} {row}")
+    _require_keys("ingraph forward", row, rates, rates)
+    k1 = tools["exp_ingraph_forward"]["launches"]["attention"]
+    forwards = 2 * INGRAPH_K + 1 + INGRAPH_REPS * INGRAPH_K  # warm-up, capture, pipelined
+    require(k1 == 4 * forwards, f"ingraph forward: K1 launched {k1} times, not 4 x {forwards}")
+    res["exp_ingraph_forward"] = {"first_line": first, **row, "k1_launches": k1}
+
+    t_checks = time.perf_counter()
+    res["ingraph_f32"] = _ingraph_f32(torch)
+    _settle(torch)
+    k4 = _k4(torch, smi)
+    k4["launches"] = k4_launches
+    res["k4"] = k4
+    seconds["ingraph_f32_and_k4"] = time.perf_counter() - t_checks
     row = {"phase": "tools", "smi": smi, "results": res, "tool_seconds": seconds,
            "seconds": time.perf_counter() - t0}
     emit(row)
@@ -3226,7 +3528,17 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated phases to run (default: all); the kernels "
                              "and ok lines are printed only when all run")
-    phases = parser.parse_args(argv).phases.split(",")
+    parser.add_argument("--tools-child", nargs=2, metavar=("SPEC", "OUT"),
+                        help=argparse.SUPPRESS)  # phase tools' child process (_tools_child)
+    args = parser.parse_args(argv)
+    if args.tools_child:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device available", file=sys.stderr)
+            return 1
+        return _tools_child(*args.tools_child)
+    phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
@@ -3279,7 +3591,7 @@ def main(argv=None) -> int:
             elif name == "graft":
                 phase_graft(torch, smi)
             elif name == "tools":
-                phase_tools(torch, work, smi)
+                k4 = phase_tools(torch, work, smi)["results"]["k4"]
             phase_seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "done", "phases": run, "phase_seconds": phase_seconds,
           "seconds": time.perf_counter() - t_start})
@@ -3307,7 +3619,16 @@ def main(argv=None) -> int:
         **{key: conv[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")},
     } for name, replaces in (("conv_parity", "tools/exp_pallas_convblock.py:97"),
-                             ("conv_strided", "tools/exp_pallas_convblock.py:74"))]})
+                             ("conv_strided", "tools/exp_pallas_convblock.py:74"))] + [{
+        "name": "conv_int8",
+        "route": "cuda",
+        "source": "video_fingerprint_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "tools/exp_int8_conv.py:79",
+        "replaces_what": "an XLA int8 conv and its fused epilogue, not a Pallas kernel",
+        **{key: k4[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library",
+                                    "library_cudnn_bf16_conv1_ms", "layers")},
+    }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,7 @@
 the JAX package, ml_dtypes, cv2 or av at import time (the 3D model, the
 index, the scan cache, the training modules, device augment, the native
 host bindings, the multi-device modules and the tools among them, the
-benchmark program and its legs and the measurement tools too, which
+benchmark program and its legs, the int8 conv and the measurement tools too, which
 import nothing of the root `tools/` either; importing the bindings builds
 nothing), and
 chip_smoke.py refuses to run without a card."""
@@ -27,7 +27,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "video_fingerprint_tpu",
                                     "tools"))
 print(len(names), bad)
-assert len(names) >= 75, names
+assert len(names) >= 80, names
 for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.device",
              "config", "ops.losses", "ops.metrics", "training.optim", "training.train_step",
              "training.trainer", "cli.train", "data.dataset", "data.augment", "data.pairs",
@@ -42,7 +42,9 @@ for name in ("models.cnn3d", "inference.index", "inference.scan_cache", "utils.d
              "tools.bench_streaming_metrics", "tools.make_trajectory_corpus",
              "tools.exp_attention_buckets", "tools.exp_topk_precision",
              "tools.exp_topk_blocked", "tools.exp_topk_cert", "tools.exp_topk_bf16sims",
-             "tools.exp_topk_production", "tools.exp_wide_topk"):
+             "tools.exp_topk_production", "tools.exp_wide_topk", "ops.conv_int8",
+             "tools.exp_input_layout", "tools.exp_layout_probe", "tools.exp_int8_conv",
+             "tools.exp_ingraph_forward"):
     assert pkg.__name__ + "." + name in names, name
 from video_fingerprint_tpu_torch.utils import native, native_decode
 assert not (native.LIBRARY.tried or native_decode.LIBRARY.tried)

@@ -248,3 +248,58 @@ def test_conv_kernel_refuses_float32():
     x, w2d, b = _conv_inputs(16, torch.float32)
     with pytest.raises(TypeError, match="bfloat16"):
         cb.conv_strided(x, w2d, b)
+
+
+def _int8_layers():
+    """The int8 probe's four layers (tools/exp_int8_conv.py's weights) on the card."""
+    from video_fingerprint_tpu_torch.tools import exp_int8_conv as eic
+
+    ws_f, bs_f, ws_q, w_scales, a_scales = eic.probe_weights(np.random.default_rng(0))
+    return eic.SPECS, eic.int8_layers(ws_q, w_scales, bs_f, a_scales, torch.device("cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 64])
+def test_int8_conv_kernel_matches_plain(card, n):
+    """K4 on each layer, fed the layer before (conv0 uint8 frames and the same
+    frames shifted to int8): int32 sums, int8 and bf16 outputs bit for bit
+    the plain version's, one launch per call."""
+    from video_fingerprint_tpu_torch.ops import conv_int8 as ci
+
+    specs, layers = _int8_layers()
+    frames = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (n, 64, 64, 3), dtype=np.uint8)).cuda()
+    x = frames
+    for i, (pw, w_scale, bias, requant) in enumerate(layers):
+        inputs = (x, (frames.to(torch.int16) - 128).to(torch.int8)) if i == 0 else (x,)
+        for xin in inputs:
+            assert torch.equal(ci.conv_int8_acc(xin, pw), ci.conv_acc_plain(xin, pw)), i
+            for rq in (requant, None):
+                before = ci.launches["conv_int8"]
+                out = ci.conv_int8(xin, pw, w_scale, bias, rq)
+                torch.cuda.synchronize()
+                assert ci.launches["conv_int8"] == before + 1
+                assert torch.equal(out, ci.conv_int8_plain(xin, pw, w_scale, bias, rq)), (i, rq)
+        x = ci.conv_int8(x, pw, w_scale, bias, requant)
+
+
+@pytest.mark.gpu
+def test_int8_conv_kernel_refuses_what_it_does_not_take(card):
+    """A uint8 input past conv0, Cin not a multiple of 32, a strided input:
+    ValueError or TypeError before any launch."""
+    from video_fingerprint_tpu_torch.ops import conv_int8 as ci
+
+    _, layers = _int8_layers()
+    pw, w_scale, bias, requant = layers[1]
+    before = dict(ci.launches)
+    with pytest.raises(TypeError, match="int8"):
+        ci.conv_int8(torch.zeros((2, 32, 32, 32), dtype=torch.uint8, device="cuda"), pw,
+                     w_scale, bias, requant)
+    with pytest.raises(ValueError, match="contiguous"):
+        ci.conv_int8(torch.zeros((2, 32, 32, 64), dtype=torch.int8, device="cuda")[..., ::2],
+                     pw, w_scale, bias, requant)
+    w16 = ci.pack_weight(torch.zeros((3, 3, 16, 32), dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ci.conv_int8(torch.zeros((2, 8, 8, 16), dtype=torch.int8, device="cuda"), w16,
+                     w_scale[:32], bias[:32], requant)
+    assert ci.launches == before

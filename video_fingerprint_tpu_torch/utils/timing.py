@@ -57,3 +57,35 @@ def replay_ms(graph: torch.cuda.CUDAGraph, calls: int, timings: int = 3) -> list
     graph.replay()
     torch.cuda.synchronize()
     return [_elapsed_ms(graph.replay, 1) / calls for _ in range(timings)]
+
+
+def loop_ms(step, k: int, reps: int, device: torch.device, weight: float = 1.0) -> float:
+    """Median ms per iteration of a loop of k iterations, iteration i adding
+    weight * the f32 sum of step(i, acc) to the scalar acc, so that no
+    iteration can be skipped (the JAX tools' in-graph `fori_loop` with a
+    scalar accumulator). On a card: the k iterations captured in one CUDA
+    graph, replayed once untimed and then `reps` times, each replay timed by
+    CUDA events (device time). On the CPU: the loop run eagerly once untimed
+    and then `reps` times by the host clock (not a device time). Raises on a
+    non-finite sum."""
+    import statistics
+    import time
+
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+
+    def run():
+        for i in range(k):
+            acc.add_(step(i, acc).sum(dtype=torch.float32), alpha=weight)
+
+    if torch.device(device).type == "cuda":
+        times = replay_ms(capture_graph(run, 1), k, timings=reps)
+    else:
+        run()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3 / k)
+    if not bool(torch.isfinite(acc)):
+        raise FloatingPointError(f"non-finite sum {acc}")
+    return statistics.median(times)
