@@ -1,0 +1,19 @@
+"""against_host_share.search: percent of the traced window spent in the
+host's own work around each `--against` search: identity checks and stacked
+queries (`against.prepare`), grouping and exact-duplicate tagging
+(`against.group`), self time."""
+
+SPANS = ("against.prepare", "against.group")
+
+
+def read(r):
+    if not r.trace.ops:  # a window that ran nothing on a card
+        return None
+    try:
+        from video_fingerprint_tpu_torch.utils.trace import recorded
+    except ImportError:  # a program without spans
+        return None
+    seconds = recorded().self_seconds
+    if not any(name in seconds for name in SPANS):
+        return None
+    return 100.0 * sum(seconds.get(name, 0.0) for name in SPANS) / r.trace.window_s

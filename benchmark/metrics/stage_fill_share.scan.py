@@ -1,0 +1,18 @@
+"""stage_fill_share.scan: percent of the traced window that the scanner's
+host thread spent padding clips into pinned staging slots: the self time of
+the program's `embed.fill` spans (utils/trace.py)."""
+
+SPANS = ("embed.fill",)
+
+
+def read(r):
+    if not r.trace.ops:  # a window that ran nothing on a card
+        return None
+    try:
+        from video_fingerprint_tpu_torch.utils.trace import recorded
+    except ImportError:  # a program without spans
+        return None
+    seconds = recorded().self_seconds
+    if not any(name in seconds for name in SPANS):
+        return None
+    return 100.0 * sum(seconds.get(name, 0.0) for name in SPANS) / r.trace.window_s

@@ -403,6 +403,7 @@ def _attention_wide_heads(torch, g):
     import torch.nn.functional as F
 
     from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
     from video_fingerprint_tpu_torch.utils.timing import graph_ms
 
@@ -415,10 +416,11 @@ def _attention_wide_heads(torch, g):
                            .to(dtype) for _ in range(3))
                 mask = _ragged_mask(torch, T, g)
                 bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
-                before = attn.launches
+                before = trace.counter("k1.launches")
                 out = attn.multihead_attention(q, k, v, mask)
                 torch.cuda.synchronize()
-                require(attn.launches == before + 1, f"{dname} D={D} T={T}: no K1 launch")
+                require(trace.counter("k1.launches") == before + 1,
+                        f"{dname} D={D} T={T}: no K1 launch")
                 with full_fp32():
                     plain = attn._attention_torch(q, k, v, bias)
                 err = (out.float() - plain.float()).abs().max().item()
@@ -522,7 +524,7 @@ def _scan_long(torch, workdir: Path, model_path: Path, rng):
     the card in one partial batch (a fully masked padding row beside them)
     and on the CPU; the kernel's launches are counted."""
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
 
     ckpt = torch.load(model_path)
     ckpt["config"] = dict(ckpt["config"], max_frames=1000)
@@ -533,10 +535,10 @@ def _scan_long(torch, workdir: Path, model_path: Path, rng):
         card = FingerprintScanner(str(path), device="cuda", batch_size=4)
         cpu = FingerprintScanner(str(path), device="cpu", batch_size=len(clips))
     require(card.buckets[-1] == 1000, f"buckets {card.buckets}")
-    attn.launches = 0
+    before = trace.counter("k1.launches")
     embs = card.embed_clips(clips)
     torch.cuda.synchronize()
-    launches = attn.launches
+    launches = trace.counter("k1.launches") - before
     require(launches == 4, f"max_frames=1000: {launches} kernel launches, not 4")
     cpu_embs = cpu.embed_clips(clips)
     cos = min(float(np.dot(embs[k], cpu_embs[k])) for k, _ in clips)
@@ -547,7 +549,7 @@ def _scan_long(torch, workdir: Path, model_path: Path, rng):
 
 def phase_scan(torch, workdir: Path):
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from torch.utils.flop_counter import FlopCounterMode
 
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -568,12 +570,12 @@ def phase_scan(torch, workdir: Path):
         per_bucket[b] = per_bucket.get(b, 0) + 1
     forwards = sum(-(-n // BATCH) for n in per_bucket.values())
 
-    attn.launches = 0
+    before = trace.counter("k1.launches")
     t0 = time.perf_counter()
     embs = scanner.embed_clips(items)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
-    launches = attn.launches
+    launches = trace.counter("k1.launches") - before
     require(launches == 4 * forwards,
             f"attention kernel launches {launches} != 4 x {forwards} forwards")
     require(set(embs) == {k for k, _ in items}, "missing embeddings")
@@ -658,7 +660,7 @@ def phase_scan(torch, workdir: Path):
 def phase_cli(torch, workdir: Path, model_path: Path):
     """The scan CLI on a synthetic mp4 corpus, on the card and on the CPU."""
     from video_fingerprint_tpu_torch.cli.scan import main
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
 
     videos = workdir / "videos"
@@ -666,13 +668,14 @@ def phase_cli(torch, workdir: Path, model_path: Path):
     reports = {}
     for device in ("cuda", "cpu"):
         out = workdir / f"results_{device}.json"
-        attn.launches = 0
+        before = trace.counter("k1.launches")
         with contextlib.redirect_stdout(io.StringIO()):
             rc = main(["--model", str(model_path), "--scan", str(videos),
                        "--threshold", "0.999999", "--output", str(out),
                        "--device", device, "--workers", "2", "--batch", "8"])
         require(rc == 0, f"CLI on {device} exited {rc}")
-        reports[device] = (json.loads(out.read_text()), attn.launches)
+        reports[device] = (json.loads(out.read_text()),
+                           trace.counter("k1.launches") - before)
     (card, card_launches), (cpu, cpu_launches) = reports["cuda"], reports["cpu"]
     require(card_launches > 0 and cpu_launches == 0, "CLI launch counts")
     require(set(card) == {"metadata", "fingerprints", "duplicate_groups"}, "JSON keys")
@@ -779,9 +782,9 @@ def phase_convblock(torch, model_path: Path):
     del scanner, frames, act, ref, outs, layer
 
     # 3. the probe, the path these kernels serve: its launches are counted
-    cb.launches = dict.fromkeys(cb.launches, 0)
+    mark = _launch_counts("conv_parity", "conv_strided")
     convblock_probe.main(["--frames", "16384", "--window-ms", "50"])
-    launches = dict(cb.launches)
+    launches = _launches(mark)
     require(all(c > 0 for c in launches.values()), f"probe launches {launches}")
 
     # 4. times at one bucket-128 batch's layer (64 videos x 128 frames) and at
@@ -818,19 +821,21 @@ EMB_DIM = 256
 CARD = "cuda"  # the device of the phases below
 
 
-def _zero_launches():
-    from video_fingerprint_tpu_torch.ops import attention as attn
-    from video_fingerprint_tpu_torch.ops import convblock as cb
-
-    attn.launches = 0
-    cb.launches = dict.fromkeys(cb.launches, 0)
+LAUNCH_COUNTERS = {"attention": "k1.launches", "conv_parity": "convblock.conv_parity",
+                   "conv_strided": "convblock.conv_strided"}
 
 
-def _launches():
-    from video_fingerprint_tpu_torch.ops import attention as attn
-    from video_fingerprint_tpu_torch.ops import convblock as cb
+def _launch_counts(*kernels):
+    """The launch counters (utils/trace.py) of `kernels`, or of every hand
+    kernel on the scan's side, by kernel."""
+    from video_fingerprint_tpu_torch.utils import trace
 
-    return {"attention": attn.launches, **cb.launches}
+    return {k: trace.counter(LAUNCH_COUNTERS[k]) for k in kernels or LAUNCH_COUNTERS}
+
+
+def _launches(since):
+    """Launches by kernel since `since`, a `_launch_counts()`."""
+    return {k: n - since[k] for k, n in _launch_counts(*since).items()}
 
 
 def _write_model_3d(torch, path: Path, rng) -> None:
@@ -921,12 +926,12 @@ def phase_scan3d(torch, workdir: Path):
     scanner.warmup(10)
     warmup_s = time.perf_counter() - t0
 
-    _zero_launches()
+    mark = _launch_counts()
     t0 = time.perf_counter()
     embs = _video_embeddings(scanner, videos)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
-    launches = _launches()
+    launches = _launches(mark)
     require(not any(launches.values()), f"a hand kernel ran in the 3D scan: {launches}")
     keys = list(videos)
     E = np.stack([embs[k] for k in keys])
@@ -1186,15 +1191,15 @@ def _certified_methods(torch, search, exact_scores, checked, sims, oracle_idx, p
     2e-5 on the oracle rows, and every planted pair (row, other) finds its
     copy at >= 0.95. The rows sent to repair, ms, exact's ms and the bound
     (the first pass's operations at its type's peak rate, or the bytes)."""
-    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.utils.timing import cuda_ms
 
     out = {}
     for method, thr in CERTIFIED_METHODS:
         name = method if thr is None else f"{method}@{thr}"
-        before = topk.repaired_rows
+        before = trace.counter("topk.repaired_rows")
         scores, idx = (t.cpu().numpy() for t in search(method, thr))
-        repaired = topk.repaired_rows - before
+        repaired = trace.counter("topk.repaired_rows") - before
         if thr is None:
             diff = np.abs(np.sort(scores, 1) - np.sort(exact_scores, 1))
             require(float(diff.max()) <= 1e-6, f"{what} {name}: not exact's scores "
@@ -1286,9 +1291,9 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
     # (a) the CLI flow, on the card and on the CPU, f32 and bf16 storage
     flows = {}
     for storage in ("f32", "bf16"):
-        _zero_launches()
+        mark = _launch_counts()
         card = _index_cli(torch, workdir, model_path, CARD, storage)
-        launches = _launches()
+        launches = _launches(mark)
         cpu = _index_cli(torch, workdir, model_path, "cpu", storage)
         require(card["groups"] == cpu["groups"], f"index CLI {storage}: card {card} cpu {cpu}")
         require(launches["attention"] > 0, "the index CLI's scans did not run K1")
@@ -1300,14 +1305,14 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
     for storage in ("f32", "bf16"):
         index = FingerprintIndex(dim=EMB_DIM, device=CARD, storage=storage)
         index.add(corpus)
-        _zero_launches()
+        mark = _launch_counts()
         t0 = time.perf_counter()
         scores, idx = index.search(queries, k=20, exact_above=0.99)
         first_s = time.perf_counter() - t0  # the corpus upload included
         t0 = time.perf_counter()
         scores, idx = index.search(queries, k=20, exact_above=0.99)
         search_s = time.perf_counter() - t0
-        require(not any(_launches().values()), "a hand kernel ran in the index search")
+        require(not any(_launches(mark).values()), "a hand kernel ran in the index search")
         for j in range(256):  # every planted copy, from both sides
             for row, other in ((j, dst[j]), (256 + j, src[j])):
                 hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
@@ -1382,6 +1387,7 @@ def _train_head_dims(torch):
     and bf16, a ragged mask with a leading-masked and a fully masked row)
     against its plain version; device time beside the bound at the true D."""
     from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.utils.precision import full_fp32
     from video_fingerprint_tpu_torch.utils.timing import graph_ms
 
@@ -1395,10 +1401,11 @@ def _train_head_dims(torch):
                        for _ in range(3))
             mask = _ragged_mask(torch, T, g)
             bias = attn._key_bias(mask, (BATCH, T), q.device)[:, None, :]
-            before = attn.launches
+            before = trace.counter("k1.launches")
             out = attn.multihead_attention(q, k, v, mask)
             torch.cuda.synchronize()
-            require(attn.launches == before + 1, f"D={D}: no kernel launch")
+            require(trace.counter("k1.launches") == before + 1,
+                    f"D={D}: no kernel launch")
             with full_fp32():
                 plain = attn._attention_torch(q, k, v, bias)
             err = (out.float() - plain.float()).abs().max().item()
@@ -1462,7 +1469,7 @@ def _train_card_vs_cpu(torch):
     group's LR (the count past 1e-3 LR is reported). The train forward
     launches K1 0 times, and every block's in_proj weight gets a nonzero
     grad."""
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.training.optim import param_group_label
     from video_fingerprint_tpu_torch.training.train_step import draw_extracts
 
@@ -1472,11 +1479,12 @@ def _train_card_vs_cpu(torch):
     outs, models, grads = {}, {}, {}
     for device in ("cuda", "cpu"):
         model, opt, step = _train_setup(torch, "attention", device, dropout=False)
-        before = attn.launches
+        before = trace.counter("k1.launches")
         out = step({k: v.to(device) for k, v in batch.items()}, draws, TRAIN_CHECK_STEP)
         if device == "cuda":
             torch.cuda.synchronize()
-            require(attn.launches == before, "the train forward launched the attention kernel")
+            require(trace.counter("k1.launches") == before,
+                    "the train forward launched the attention kernel")
             for i, block in enumerate(model.attention_blocks):
                 grad = block.attn.in_proj_weight.grad
                 require(grad is not None and bool((grad != 0).any()),
@@ -1540,7 +1548,7 @@ def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast:
     step, as the trainer does); the host CPU seconds per step, peak device
     memory, the host's and the card's state before and after, one step under
     torch.profiler (its busy share); K1 launches (0 expected)."""
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.training.train_step import (
         draw_augmentations,
         draw_extracts,
@@ -1562,7 +1570,7 @@ def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast:
         return out or None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = attn.launches
+    before = trace.counter("k1.launches")
     n = 0
     for _ in range(WARM_STEPS):
         out = step(batch, draws(), n)
@@ -1579,7 +1587,7 @@ def _train_steps_per_s(torch, model_type: str, B: int, T: int, bf16: bool, fast:
     state_after = _host_and_card_state(torch)
     loss = float(out["loss"])
     require(np.isfinite(loss), f"{model_type} bf16={bf16} fast={fast}: loss {loss}")
-    require(attn.launches == before, "a train step launched the attention kernel")
+    require(trace.counter("k1.launches") == before, "a train step launched the attention kernel")
     row = {"model": model_type, "B": B, "T": T, "dtype": "bfloat16" if bf16 else "float32",
            "fast_extracts": fast, "device_augment": augment,
            "steps_per_s": TIMED_STEPS / seconds,
@@ -1603,7 +1611,7 @@ def _train_cli(torch, workdir: Path):
 
     from video_fingerprint_tpu_torch.cli.train import main
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.training import checkpoint as ckpt
     from video_fingerprint_tpu_torch.training.trainer import Trainer
     from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
@@ -1615,9 +1623,9 @@ def _train_cli(torch, workdir: Path):
 
     def counted(name):
         def run(self, *args, **kwargs):
-            before = attn.launches
+            before = trace.counter("k1.launches")
             out = originals[name](self, *args, **kwargs)
-            counts[name] += attn.launches - before
+            counts[name] += trace.counter("k1.launches") - before
             return out
         return run
 
@@ -1655,7 +1663,7 @@ def _train_cli(torch, workdir: Path):
         for name, fn in originals.items():
             setattr(Trainer, name, fn)
         os.chdir(cwd)
-    before = attn.launches
+    before = trace.counter("k1.launches")
     with contextlib.redirect_stdout(io.StringIO()):
         scanner = FingerprintScanner(str(run / "checkpoints/best.ckpt"), device="cuda",
                                      batch_size=8)
@@ -1665,7 +1673,8 @@ def _train_cli(torch, workdir: Path):
     require(len(fps) == 16 and bool(np.isfinite(E).all())
             and float(np.abs(np.linalg.norm(E, axis=1) - 1).max()) < 1e-5,
             "best.ckpt scan: bad fingerprints")
-    require(attn.launches > before, "the scan of best.ckpt did not launch the kernel")
+    require(trace.counter("k1.launches") > before,
+            "the scan of best.ckpt did not launch the kernel")
     val = json.loads((run / "checkpoints/best_metrics.json").read_text())["val"]
     return {"videos": 16, "epochs": 2, "steps_per_epoch": steps_per_epoch,
             "first_run_s": first_s, "attention_launches": dict(counts),
@@ -1849,7 +1858,7 @@ def _augment_cli(torch, workdir: Path):
     import os
 
     from video_fingerprint_tpu_torch.cli.train import main
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.training.trainer import Trainer
     from video_fingerprint_tpu_torch.utils.synthetic import make_corpus
 
@@ -1861,9 +1870,9 @@ def _augment_cli(torch, workdir: Path):
 
     def counted(name):
         def run(self, *args, **kwargs):
-            before = attn.launches
+            before = trace.counter("k1.launches")
             out = originals[name](self, *args, **kwargs)
-            counts[name] += attn.launches - before
+            counts[name] += trace.counter("k1.launches") - before
             return out
         return run
 
@@ -1994,14 +2003,14 @@ def _require_pairs(groups, paths, what):
 
 
 def _scan_and_group(torch, scanner, videos):
-    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
 
-    before = attn.launches
+    before = trace.counter("k1.launches")
     with contextlib.redirect_stdout(io.StringIO()):
         fps = scanner.scan_directory(videos, num_workers=4)
         groups = _groups(scanner.find_duplicates(fps, 0.999999))
     torch.cuda.synchronize()
-    return fps, groups, attn.launches - before
+    return fps, groups, trace.counter("k1.launches") - before
 
 
 def _decode_percore(workdir: Path, native_built: bool, smi: str):
@@ -2166,10 +2175,10 @@ def _dp_scan(torch, workdir: Path, smi: str):
             scanner = FingerprintScanner(str(model_path), device=CARD, batch_size=BATCH,
                                          data_parallel=dp)
         scanner.warmup()
-        _zero_launches()
+        mark = _launch_counts()
         embs = scanner.embed_clips(items)
         torch.cuda.synchronize()
-        launches = _launches()
+        launches = _launches(mark)
         require(launches["attention"] == 4 * forwards * shards,
                 f"{shards} shards: K1 launched {launches['attention']} times, "
                 f"not 4 x {forwards} forwards x {shards}")
@@ -2210,10 +2219,10 @@ def _dp_scan(torch, workdir: Path, smi: str):
                                          data_parallel=dp)
         if shards == 1:
             videos, pairs3d = _seeded_videos_3d(rng3, scanner)
-        _zero_launches()
+        mark = _launch_counts()
         out3d[shards] = _video_embeddings(scanner, videos)
         torch.cuda.synchronize()
-        require(not any(_launches().values()), "a hand kernel ran in the 3D scan")
+        require(not any(_launches(mark).values()), "a hand kernel ran in the 3D scan")
         keys = list(videos)
         fps = {k: {"embedding": out3d[shards][k], "path": k, "name": k, "size": 0,
                    "file_hash": hashlib.md5(b"".join(w.tobytes() for w in videos[k])).hexdigest()}
@@ -2251,9 +2260,9 @@ def _dp_search(torch, smi: str):
         staged = topk.stage_sharded_corpus(corpus, devices, dtype)
         single = topk.stage_corpus(corpus, CARD, dtype)
         q_dev = torch.from_numpy(queries).to(CARD)
-        _zero_launches()
+        mark = _launch_counts()
         scores, idx = (t.cpu().numpy() for t in topk.sharded_topk_search(q_dev, staged, 20))
-        require(not any(_launches().values()), "a hand kernel ran in the sharded search")
+        require(not any(_launches(mark).values()), "a hand kernel ran in the sharded search")
         ref_s, ref_i = (t.cpu().numpy() for t in topk.topk_search(q_dev, single, 20))
         require(bool((idx == ref_i).all()), f"sharded {storage}: indices differ from one card")
         diff = float(np.abs(scores - ref_s).max())
@@ -2454,19 +2463,20 @@ _CLI_SHIM = """
 import json, sys, time
 import torch
 from video_fingerprint_tpu_torch.cli.train import main
-from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.parallel import distributed
 from video_fingerprint_tpu_torch.training.trainer import Trainer
+from video_fingerprint_tpu_torch.utils import trace
 
 stats = {"launches": {}, "seconds": {}, "steps": 0}
 
 def counted(name):
     real = getattr(Trainer, name)
     def run(self, *args, **kwargs):
-        before, t0, step0 = attn.launches, time.perf_counter(), self.global_step
+        before, t0, step0 = trace.counter("k1.launches"), time.perf_counter(), self.global_step
         out = real(self, *args, **kwargs)
         torch.cuda.synchronize()
-        stats["launches"][name] = stats["launches"].get(name, 0) + attn.launches - before
+        launched = trace.counter("k1.launches") - before
+        stats["launches"][name] = stats["launches"].get(name, 0) + launched
         stats["seconds"][name] = stats["seconds"].get(name, 0.0) + time.perf_counter() - t0
         if name == "train_epoch":
             stats["steps"] += self.global_step - step0
@@ -2559,21 +2569,29 @@ def _method_name(method, thr):
 
 def _wall_ms(torch, fn, repeats: int = MP_REPEATS):
     """Host-clock ms per call over `repeats` calls ending in a synchronize,
-    after one call, and the ms per call spent in the port's collectives. A
-    call across ranks waits for every rank, so its time is the host's, and
-    every rank makes the same count of calls."""
+    after one call, and the ms per call spent in the port's collectives
+    (their `collective` spans, recorded over `repeats` more calls under the
+    profiler, so the timed calls run untraced). A call across ranks waits
+    for every rank, so its time is the host's, and every rank makes the
+    same count of calls."""
     from video_fingerprint_tpu_torch.parallel import distributed
+    from video_fingerprint_tpu_torch.utils import trace
 
     fn()
     torch.cuda.synchronize()
     if distributed.world_size() > 1:
         torch.distributed.barrier()
-    c0, t0 = distributed.collective_seconds, time.perf_counter()
+    t0 = time.perf_counter()
     for _ in range(repeats):
         fn()
     torch.cuda.synchronize()
-    return ((time.perf_counter() - t0) * 1e3 / repeats,
-            (distributed.collective_seconds - c0) * 1e3 / repeats)
+    ms = (time.perf_counter() - t0) * 1e3 / repeats
+    trace.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    return ms, trace.recorded().self_seconds.get("collective", 0.0) * 1e3 / repeats
 
 
 def _mp_rank(rank: int, world: int, port: int, out_path: str, data_path: str) -> None:
@@ -2584,9 +2602,9 @@ def _mp_rank(rank: int, world: int, port: int, out_path: str, data_path: str) ->
     import torch
 
     from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
-    from video_fingerprint_tpu_torch.ops import attention as attn
     from video_fingerprint_tpu_torch.ops import topk
     from video_fingerprint_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from video_fingerprint_tpu_torch.utils import trace
 
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -2597,13 +2615,15 @@ def _mp_rank(rank: int, world: int, port: int, out_path: str, data_path: str) ->
 
     def run(what, staged, search):
         for method, thr in MP_METHODS:
-            before, launches = topk.repaired_rows, attn.launches
+            before = trace.counter("topk.repaired_rows")
+            launches = trace.counter("k1.launches")
             scores, idx = (t.cpu().numpy() for t in search(staged, method, thr))
-            repaired = topk.repaired_rows - before
+            repaired = trace.counter("topk.repaired_rows") - before
             ms, coll_ms = _wall_ms(torch, lambda: search(staged, method, thr))
             out["searches"][f"{what} {_method_name(method, thr)}"] = {
                 "scores": scores, "idx": idx, "ms": ms, "collective_ms": coll_ms,
-                "repaired_rows": repaired, "attention_launches": attn.launches - launches}
+                "repaired_rows": repaired,
+                "attention_launches": trace.counter("k1.launches") - launches}
         out["held"][what] = [(staged.offset(i), len(staged.valid(i)))
                              for i in range(len(staged.shards))]
 
@@ -2659,6 +2679,7 @@ def _mp_references(torch):
     oracle on the checked rows, and the one-process index's answer."""
     from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
     from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils import trace
 
     corpus, src, dst, _, queries, checked, emb = _index_data()
     planted = [(j, dst[j]) for j in range(256)] + [(256 + j, src[j]) for j in range(256)]
@@ -2667,9 +2688,9 @@ def _mp_references(torch):
 
     def run(what, search, rows, sims, oracle_idx, planted, bound):
         for method, thr in MP_METHODS:
-            before = topk.repaired_rows
+            before = trace.counter("topk.repaired_rows")
             scores, idx = (t.cpu().numpy() for t in search(method, thr))
-            repaired = topk.repaired_rows - before
+            repaired = trace.counter("topk.repaired_rows") - before
             ms, _ = _wall_ms(torch, lambda: search(method, thr))
             refs[f"{what} {_method_name(method, thr)}"] = {
                 "scores": scores, "idx": idx, "ms": ms, "repaired_rows": repaired,
@@ -2839,10 +2860,10 @@ def _s2d(torch, workdir: Path, smi: str):
             model.to(CARD).eval().spatial_encoder.to(memory_format=torch.channels_last)
             scanner.model = model
         scanner.warmup()
-        _zero_launches()
+        mark = _launch_counts()
         embs[layout] = scanner.embed_clips(items)
         torch.cuda.synchronize()
-        launches = _launches()["attention"]
+        launches = _launches(mark)["attention"]
         require(launches == 4 * forwards,
                 f"s2d {layout}: K1 launched {launches} times, not 4 x {forwards} forwards")
     cos = min(float(np.dot(embs["s2d"][k], embs["standard"][k])) for k, _ in items)
@@ -2941,11 +2962,11 @@ def phase_bench(torch, workdir: Path, smi: str):
     frames = torch.from_numpy(saved["frames"]).to(CARD)
     n, T = frames.shape[:2]
     model = bench_headline.fused_model(int(saved["seed"]), torch.device(CARD), torch.float32)
-    _zero_launches()
+    mark = _launch_counts()
     with torch.no_grad(), full_fp32():
         ref = model.forward_flat(frames.reshape((n * T,) + tuple(frames.shape[2:])), n)
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = _launches(mark)
     require(launches["attention"] == 4, f"f32 forward launched K1 {launches} times")
     ref = ref.cpu().numpy()
     emb = saved["embeddings"]
@@ -3047,10 +3068,10 @@ def phase_graft(torch, smi: str):
 
     t0 = time.perf_counter()
     fn, (variables, video) = graft_entry.entry()
-    _zero_launches()
+    mark = _launch_counts()
     out = fn(variables, video)
     torch.cuda.synchronize()
-    launches = _launches()["attention"]
+    launches = _launches(mark)["attention"]
     require(launches == 4, f"graft entry: K1 launched {launches} times")
     emb = out.cpu().numpy()
     require(emb.shape == (1, 256) and bool(np.isfinite(emb).all())
@@ -3256,7 +3277,7 @@ def _tools_child(spec_path: str, out_path: str) -> int:
     """The child process of phase `tools`: each run of the spec file (see
     _tool_runs) in turn, in this one process, as main(argv) of its module
     with its environment set and its standard output captured; K1's and
-    K4's launch counts set to 0 before it and read after it; torch's flags
+    K4's launch counters read before it and after it; torch's flags
     put back and the card settled after it. Each run's output, seconds,
     counts and error (a traceback, or None) go to out_path, rewritten after
     every run."""
@@ -3265,16 +3286,15 @@ def _tools_child(spec_path: str, out_path: str) -> int:
 
     import torch
 
-    from video_fingerprint_tpu_torch.ops import attention as attn
-    from video_fingerprint_tpu_torch.ops import conv_int8 as ci
+    from video_fingerprint_tpu_torch.utils import trace
 
     results = []
     for key, module, argv, env in json.loads(Path(spec_path).read_text()):
         flags = _torch_flags(torch)
         saved_env = {name: os.environ.get(name) for name in env}
         os.environ.update(env)
-        attn.launches = 0
-        ci.launches["conv_int8"] = 0
+        k1_before = trace.counter("k1.launches")
+        int8_before = trace.counter("conv_int8.conv_int8")
         out, error, t0 = io.StringIO(), None, time.perf_counter()
         try:
             with contextlib.redirect_stdout(out):
@@ -3286,7 +3306,8 @@ def _tools_child(spec_path: str, out_path: str) -> int:
         except (Exception, SystemExit):  # noqa: BLE001 - the parent fails the phase on it
             error = traceback.format_exc()[-4000:]
         seconds = time.perf_counter() - t0
-        launches = {"attention": attn.launches, "conv_int8": ci.launches["conv_int8"]}
+        launches = {"attention": trace.counter("k1.launches") - k1_before,
+                    "conv_int8": trace.counter("conv_int8.conv_int8") - int8_before}
         for name, value in saved_env.items():
             if value is None:
                 os.environ.pop(name, None)

@@ -28,6 +28,7 @@ from jax import lax
 
 from video_fingerprint_tpu_torch.ops import conv_int8 as ci
 from video_fingerprint_tpu_torch.tools import exp_int8_conv as eic
+from video_fingerprint_tpu_torch.utils import trace
 
 N = 4
 
@@ -168,6 +169,7 @@ def test_pack_weight_and_cpu_dispatch(probe):
     """pack_weight: (Cout, Kpad) in (dy, dx, ci) order, zero past k * k * Cin
     (conv0: 75 -> 96); conv_int8 on a CPU tensor is the plain version, and
     another device raises."""
+    launched = trace.counter("conv_int8.conv_int8")
     w = torch.from_numpy(probe["w"][0])
     pw = ci.pack_weight(w)
     assert pw.matrix.shape == (32, 96) and (pw.ksize, pw.cin) == (5, 3)
@@ -178,6 +180,6 @@ def test_pack_weight_and_cpu_dispatch(probe):
     args = (torch.from_numpy(probe["w_scale"][0]), torch.from_numpy(probe["bias"][0]))
     assert torch.equal(ci.conv_int8(x, pw, *args, 0.05), ci.conv_int8_plain(x, w, *args, 0.05))
     assert torch.equal(ci.conv_int8_acc(x, w), ci.conv_acc_plain(x, pw))
-    assert ci.launches["conv_int8"] == 0
+    assert trace.counter("conv_int8.conv_int8") == launched
     with pytest.raises(RuntimeError, match="no int8 conv kernel"):
         ci.conv_int8(x.to("meta"), pw, *args, 0.05)

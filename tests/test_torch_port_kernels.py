@@ -13,11 +13,19 @@ import torch
 
 from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.ops import convblock as cb
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 
 ATTENTION_T = (1, 17, 32, 48, 64, 65, 127, 128, 129, 256, 500, 513, 1000)
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+CONV_ENTRIES = ("conv_parity", "conv_strided")
+INT8_ENTRIES = ("conv_int8", "conv_int8_acc")
+
+
+def _launches(prefix, entries):
+    """The launch counters of a kernel's entry points (utils/trace.py)."""
+    return {e: trace.counter(f"{prefix}.{e}") for e in entries}
 
 
 def _mask(B, T):
@@ -44,10 +52,10 @@ def _inputs(T, dtype, B=8, H=8, D=32):
 def _check_attention(q, k, v, mask, tol):
     """One launch (the count moves by one), finite, the plain version's
     values, and the mean of v for the fully masked last batch."""
-    before = attn.launches
+    before = trace.counter("k1.launches")
     out = attn.multihead_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert attn.launches == before + 1
+    assert trace.counter("k1.launches") == before + 1
     bias = attn._key_bias(mask, mask.shape, mask.device)[:, None, :]
     with full_fp32():
         plain = attn._attention_torch(q, k, v, bias)
@@ -158,13 +166,13 @@ def test_attention_kernel_refuses_grad(card):
     launch would cut attention out of the graph); under no_grad it runs."""
     q, k, v, mask = _inputs(32, torch.float32)
     q.requires_grad_(True)
-    before = attn.launches
+    before = trace.counter("k1.launches")
     with pytest.raises(RuntimeError, match="no backward"):
         attn.multihead_attention(q, k, v, mask)
-    assert attn.launches == before
+    assert trace.counter("k1.launches") == before
     with torch.no_grad():
         attn.multihead_attention(q, k, v, mask)
-    assert attn.launches == before + 1
+    assert trace.counter("k1.launches") == before + 1
 
 
 def _conv_inputs(n, dtype=torch.bfloat16, frames=None):
@@ -193,11 +201,11 @@ def test_conv_kernels_match_plain(n, frames):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     x, w2d, b = _conv_inputs(n, frames=frames)
-    before = dict(cb.launches)
+    before = _launches("convblock", CONV_ENTRIES)
     parity = cb.conv_parity(*cb.split_parity(x), w2d, b)
     strided = cb.conv_strided(x, w2d, b)
     torch.cuda.synchronize()
-    assert cb.launches == {k: c + 1 for k, c in before.items()}
+    assert _launches("convblock", CONV_ENTRIES) == {k: c + 1 for k, c in before.items()}
     with full_fp32():
         plain = cb._conv_torch(x, w2d, b)
     assert torch.equal(parity, strided)
@@ -233,12 +241,12 @@ def test_conv_kernel_refuses_strided_frames():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     x, w2d, b = _conv_inputs(64)
-    before = dict(cb.launches)
+    before = _launches("convblock", CONV_ENTRIES)
     with pytest.raises(ValueError, match="stride 1"):
         cb.conv_strided(x[..., ::2], w2d, b)
     with pytest.raises(ValueError, match="stride 1"):
         cb.conv_parity(*cb.split_parity(x[..., ::2]), w2d, b)
-    assert cb.launches == before
+    assert _launches("convblock", CONV_ENTRIES) == before
 
 
 @pytest.mark.gpu
@@ -275,10 +283,10 @@ def test_int8_conv_kernel_matches_plain(card, n):
         for xin in inputs:
             assert torch.equal(ci.conv_int8_acc(xin, pw), ci.conv_acc_plain(xin, pw)), i
             for rq in (requant, None):
-                before = ci.launches["conv_int8"]
+                before = trace.counter("conv_int8.conv_int8")
                 out = ci.conv_int8(xin, pw, w_scale, bias, rq)
                 torch.cuda.synchronize()
-                assert ci.launches["conv_int8"] == before + 1
+                assert trace.counter("conv_int8.conv_int8") == before + 1
                 assert torch.equal(out, ci.conv_int8_plain(xin, pw, w_scale, bias, rq)), (i, rq)
         x = ci.conv_int8(x, pw, w_scale, bias, requant)
 
@@ -291,7 +299,7 @@ def test_int8_conv_kernel_refuses_what_it_does_not_take(card):
 
     _, layers = _int8_layers()
     pw, w_scale, bias, requant = layers[1]
-    before = dict(ci.launches)
+    before = _launches("conv_int8", INT8_ENTRIES)
     with pytest.raises(TypeError, match="int8"):
         ci.conv_int8(torch.zeros((2, 32, 32, 32), dtype=torch.uint8, device="cuda"), pw,
                      w_scale, bias, requant)
@@ -302,4 +310,4 @@ def test_int8_conv_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="multiple of 32"):
         ci.conv_int8(torch.zeros((2, 8, 8, 16), dtype=torch.int8, device="cuda"), w16,
                      w_scale[:32], bias[:32], requant)
-    assert ci.launches == before
+    assert _launches("conv_int8", INT8_ENTRIES) == before

@@ -28,6 +28,7 @@ from video_fingerprint_tpu.ops import topk as jax_topk
 from video_fingerprint_tpu.parallel.mesh import make_mesh
 from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
 from video_fingerprint_tpu_torch.ops import topk
+from video_fingerprint_tpu_torch.utils import trace
 
 SHARDS = [2, 4, 8]
 
@@ -132,7 +133,7 @@ def test_certified_contracts_both_paths(clustered, d, method, thr, storage):
     dtype = torch.bfloat16 if storage == "bf16" else torch.float32
     staged = topk.stage_sharded_corpus(e, _devices(d), dtype)
     sims = stored[storage] @ stored[storage].T
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     s, i = _np(topk.sharded_topk_cosine(staged, k, method=method, exact_above=thr,
                                         recall_target=0.7))
     _check_contract(s, i, sims, k, thr, tol)
@@ -141,7 +142,7 @@ def test_certified_contracts_both_paths(clustered, d, method, thr, storage):
                                         recall_target=0.7))
     _check_contract(s, i, sims[:200], k, thr, tol)
     if thr is None:  # the strict certificate fails rows at recall 0.7
-        assert topk.repaired_rows > before
+        assert trace.counter("topk.repaired_rows") > before
 
 
 def test_k_past_a_shard_and_tiny_corpus_match_jax():

@@ -22,6 +22,7 @@ import torch
 from tools.exp_topk_precision import make_corpus
 from video_fingerprint_tpu.ops import topk as jax_topk
 from video_fingerprint_tpu_torch.ops import topk
+from video_fingerprint_tpu_torch.utils import trace
 
 
 @pytest.fixture(scope="module")
@@ -143,9 +144,9 @@ def test_certified_bf16_widens_certificate():
     sims = corpus[:1] @ corpus.T
     assert (sims >= thr).sum() == 1 and (sims >= thr - topk._BF16_DOT_EPS).sum() > 8
     # the search still answers exactly for that row: the repair ran
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     s, i = _search(corpus[:1], corpus, 8, method="certified-bf16", exact_above=thr)
-    assert topk.repaired_rows == before + 1
+    assert trace.counter("topk.repaired_rows") == before + 1
     np.testing.assert_allclose(s[0], np.sort(sims[0])[::-1][:8], atol=1e-6)
 
 
@@ -159,11 +160,11 @@ def test_certified_bf16_requires_threshold_and_methods_are_checked():
 
 def test_auto_is_exact(embeddings):
     e = torch.from_numpy(embeddings)
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     for a, b in zip(topk.topk_cosine(e, 10, exact_above=0.9),
                     topk.topk_cosine(e, 10, exact_above=0.9, method="exact")):
         assert torch.equal(a, b)
-    assert topk.repaired_rows == before
+    assert trace.counter("topk.repaired_rows") == before
 
 
 def test_rescore_sorts_and_keeps_neginf():
@@ -192,9 +193,9 @@ def test_bf16_storage_certified_matches_exact(embeddings, small_tiles):
     e16 = torch.from_numpy(embeddings).to(torch.bfloat16)
     k = 20
     s_ref, _ = _search(e16, e16, k, method="exact")
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     s, _ = _search(e16, e16, k, method="certified", recall_target=0.7)
-    assert topk.repaired_rows > before
+    assert trace.counter("topk.repaired_rows") > before
     np.testing.assert_allclose(np.sort(s, 1), np.sort(s_ref, 1), atol=1e-6)
     sims = _qdirs(embeddings) @ _qdirs(embeddings).T
     o = np.take_along_axis(sims, np.argsort(-sims, axis=1)[:, :k], axis=1)
@@ -266,9 +267,9 @@ def test_small_bins_fail_rows_and_the_repair_fixes_them(thr, small_tiles):
         _, _, ok = topk._certified(p, k, 0.3, thr, lowp=False)
     failed = int((~ok).sum())
     assert failed > 50
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     s, i = _search(e, e, k, method="certified", exact_above=thr, recall_target=0.3)
-    assert topk.repaired_rows - before == failed
+    assert trace.counter("topk.repaired_rows") - before == failed
     s_ref, _ = _search(e, e, k, method="exact")
     if thr is None:
         np.testing.assert_array_equal(np.sort(s, 1), np.sort(s_ref, 1))
@@ -303,9 +304,9 @@ def test_blocks_smaller_than_the_corpus(monkeypatch, method, thr):
     stacked = torch.stack(per_block)
     assert torch.equal(ok, stacked.all(dim=0))
     assert bool((stacked.any(dim=0) & ~stacked.all(dim=0)).any())
-    before = topk.repaired_rows
+    before = trace.counter("topk.repaired_rows")
     s, i = _search(e, e, k, method=method, exact_above=thr, recall_target=recall)
-    assert topk.repaired_rows - before == int((~ok).sum()) > 0
+    assert trace.counter("topk.repaired_rows") - before == int((~ok).sum()) > 0
     if thr is None:
         s_ref, _ = _search(e, e, k, method="exact")
         np.testing.assert_array_equal(np.sort(s, 1), np.sort(s_ref, 1))

@@ -128,3 +128,14 @@ def test_ported_flags_run(corpus, tmp_path, monkeypatch, capsys, flag, model):
     assert seen["train"] == ("device" if flag == "--device_augment" else "host",
                              "native" if native else "cv2")
     assert seen["val"] == ("native" if native else "cv2")
+
+
+def test_profile_writes_a_trace(corpus, tmp_path, monkeypatch, capsys):
+    """--profile: a chrome trace of the first epoch's steps 2-5 under
+    <run_dir>/profile, by utils/trace.py's exporter."""
+    monkeypatch.chdir(tmp_path)
+    assert _run(corpus, "--profile", "--epochs", "1", "--batch_size", "1",
+                "--run_name", "p") == 0
+    events = json.loads((tmp_path / "runs/p/profile/trace.json").read_text())["traceEvents"]
+    assert any(ev.get("cat") == "cpu_op" for ev in events)
+    assert "profiler trace written to" in capsys.readouterr().out

@@ -187,6 +187,7 @@ def _task_search(inputs, rank, world):
     from video_fingerprint_tpu_torch.inference import scanner as scanner_mod
     from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
     from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils import trace
     from video_fingerprint_tpu_torch.parallel import distributed
 
     arrays = inputs["arrays"]
@@ -197,14 +198,15 @@ def _task_search(inputs, rank, world):
                                            dtype)
         kwargs = dict(method=case["method"], exact_above=case["thr"],
                       recall_target=case["recall"])
-        before = topk.repaired_rows
+        before = trace.counter("topk.repaired_rows")
         if case["kind"] == "ring":
             s, i = topk.sharded_topk_cosine(staged, case["k"], **kwargs)
         else:
             s, i = topk.sharded_topk_search(arrays[case["queries"]], staged, case["k"],
                                             **kwargs)
         out["cases"][case["name"]] = {
-            "scores": s.numpy(), "idx": i.numpy(), "repaired": topk.repaired_rows - before,
+            "scores": s.numpy(), "idx": i.numpy(),
+            "repaired": trace.counter("topk.repaired_rows") - before,
             "held": [(staged.offset(j), len(staged.valid(j)))
                      for j in range(len(staged.shards))]}
 

@@ -10,12 +10,24 @@ than one card, the top-k duplicate search and a large `--against` corpus
 are row-sharded over the cards whatever the flag says, as in the JAX
 package. `--device` is cuda (default) or cpu; cuda without a card is an
 error, not a fallback.
+
+`--profile DIR` writes a torch.profiler chrome trace of the scan and of the
+duplicate or `--against` search to DIR/trace.json. The port's spans show
+there as `vfp.*` ranges beside the kernels: per batch `vfp.embed.batch`,
+holding `embed.slot_wait` (a pinned slot's last copy), `embed.fill` (the
+clips padded into the slot), `embed.forward` (the forward's launch) and
+`embed.readback_wait` (the previous batch's result); `decode.queue_wait`
+(the batching stage waiting for decoded clips); per `--against` call
+`against.call`, holding `against.prepare`, `index.search` (with
+`index.upload`, `topk.sync` and `index.readback`) and `against.group`.
+The trace grows with the scan: use it on a sample folder.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 
 
@@ -79,6 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Keep index entries for files that are missing "
                              "on disk (shared or networked indexes where a "
                              "mount may be absent for a while)")
+    parser.add_argument("--profile", type=str, metavar="DIR",
+                        help="Write a torch.profiler trace of the scan and the "
+                             "search, with the scanner's vfp.* spans, to "
+                             "DIR/trace.json (the trace grows with the scan: "
+                             "for a sample folder)")
     return parser
 
 
@@ -107,6 +124,7 @@ def main(argv=None) -> int:
         save_results,
     )
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.utils import trace
 
     print("Starting video fingerprint scanner")
     print("=" * 80)
@@ -149,39 +167,42 @@ def main(argv=None) -> int:
         if cache:
             print(f"Loaded scan index with {len(cache)} fingerprints from {args.index}")
 
-    fingerprints = scanner.scan_directory(
-        video_dir,
-        extensions=args.extensions,
-        num_workers=args.workers,
-        batched=not args.no_batched,
-        cache=cache,
-    )
-    if not fingerprints:
-        print("No videos could be analyzed")
-        return 1
-
-    if args.index:
-        from video_fingerprint_tpu_torch.inference.scan_cache import save_cache
-
-        # merge the prior cache (rescans win); prune deleted files in the root
-        kept = _kept_entries(cache or {}, fingerprints, video_dir.resolve(), args.no_prune)
-        pruned = len(cache or {}) - len(kept)
-        if pruned:
-            print(f"Pruned {pruned} index entries for deleted files")
-        save_cache(args.index, {**kept, **fingerprints},
-                   model_identity=scanner.model_identity, storage=args.index_storage)
-        print(f"Scan index saved to {args.index}")
-
-    if corpus_index is not None:
-        try:
-            duplicate_groups = scanner.find_duplicates_against(
-                fingerprints, corpus_index, similarity_threshold=args.threshold)
-        except ValueError as e:
-            print(f"Error: {e}")
+    with trace.profile(args.profile, scanner.device) if args.profile else nullcontext():
+        fingerprints = scanner.scan_directory(
+            video_dir,
+            extensions=args.extensions,
+            num_workers=args.workers,
+            batched=not args.no_batched,
+            cache=cache,
+        )
+        if not fingerprints:
+            print("No videos could be analyzed")
             return 1
-    else:
-        duplicate_groups = scanner.find_duplicates(
-            fingerprints, similarity_threshold=args.threshold)
+
+        if args.index:
+            from video_fingerprint_tpu_torch.inference.scan_cache import save_cache
+
+            # merge the prior cache (rescans win); prune deleted files in the root
+            kept = _kept_entries(cache or {}, fingerprints, video_dir.resolve(),
+                                 args.no_prune)
+            pruned = len(cache or {}) - len(kept)
+            if pruned:
+                print(f"Pruned {pruned} index entries for deleted files")
+            save_cache(args.index, {**kept, **fingerprints},
+                       model_identity=scanner.model_identity, storage=args.index_storage)
+            print(f"Scan index saved to {args.index}")
+
+        if corpus_index is not None:
+            try:
+                duplicate_groups = scanner.find_duplicates_against(
+                    fingerprints, corpus_index, similarity_threshold=args.threshold)
+            except ValueError as e:
+                print(f"Error: {e}")
+                return 1
+        else:
+            duplicate_groups = scanner.find_duplicates(
+                fingerprints, similarity_threshold=args.threshold)
+
     print_duplicate_report(duplicate_groups)
 
     if args.output:

@@ -187,23 +187,28 @@ class FingerprintIndex:
         )
         from video_fingerprint_tpu_torch.parallel.distributed import world_size
         from video_fingerprint_tpu_torch.parallel.mesh import as_devices
+        from video_fingerprint_tpu_torch.utils import trace
 
-        n = len(self)
-        devices = as_devices(self._devices, self.device)
-        shards = len(devices) * world_size()
-        if shards > 1 and n >= 8 * shards:
-            if self._staged_sharded is None:
-                dtype = torch.bfloat16 if self.storage == "bf16" else torch.float32
-                self._staged_sharded = stage_sharded_corpus(self._flat_embeddings(),
-                                                            devices, dtype)
-                self._staged = None
-            scores, idx = sharded_topk_search(queries, self._staged_sharded, min(k, n),
-                                              exact_above=exact_above)
-            return scores.cpu().numpy(), idx.cpu().numpy()
-        corpus = self._corpus()
-        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(self.device)
-        scores, idx = topk_search(q, corpus, min(k, len(self)), exact_above=exact_above)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        with trace.span("index.search"):
+            n = len(self)
+            devices = as_devices(self._devices, self.device)
+            shards = len(devices) * world_size()
+            if shards > 1 and n >= 8 * shards:
+                if self._staged_sharded is None:
+                    dtype = torch.bfloat16 if self.storage == "bf16" else torch.float32
+                    self._staged_sharded = stage_sharded_corpus(self._flat_embeddings(),
+                                                                devices, dtype)
+                    self._staged = None
+                scores, idx = sharded_topk_search(queries, self._staged_sharded,
+                                                  min(k, n), exact_above=exact_above)
+            else:
+                corpus = self._corpus()
+                with trace.span("index.upload"):
+                    q = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
+                    q = q.to(self.device)
+                scores, idx = topk_search(q, corpus, min(k, n), exact_above=exact_above)
+            with trace.span("index.readback"):
+                return scores.cpu().numpy(), idx.cpu().numpy()
 
     def save(self, path) -> None:
         """Atomic write of the embeddings, the meta and the model identity;

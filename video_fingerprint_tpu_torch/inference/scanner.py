@@ -21,7 +21,8 @@ families:
     buckets are multiples of its frame stride, where zero padding is the
     model's own. Staging buffers are pinned, the copies to and from the
     card are asynchronous, and one batch's result is read back only after
-    the next batch is on its way;
+    the next batch is on its way. Its spans (`embed.*`, `decode.queue_wait`)
+    and its counts of staged and useful frames are utils/trace.py's;
   - a 3D video's windows reduce to one embedding: a single window's as it
     is, several windows' mean renormalized (`reduce_windows`);
   - an optional cache of an earlier scan (inference/scan_cache.py) skips
@@ -59,7 +60,7 @@ from video_fingerprint_tpu_torch.ops.topk import sharded_topk_cosine, topk_cosin
 from video_fingerprint_tpu_torch.parallel.distributed import world_size
 from video_fingerprint_tpu_torch.parallel.mesh import as_devices, pad_to_multiple
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
-from video_fingerprint_tpu_torch.utils import native
+from video_fingerprint_tpu_torch.utils import native, trace
 from video_fingerprint_tpu_torch.utils import native_decode as native_decode_lib
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -108,17 +109,18 @@ class _AsyncPipeline:
     the copies and compute of one batch with the readback of the other."""
 
     def __init__(self, on_result):
-        self._inflight: List[Tuple[Any, _Readback]] = []
+        self._inflight: List[Tuple[Any, _Readback, Hashable]] = []
         self._on_result = on_result
 
-    def dispatch(self, context, readback: _Readback) -> None:
-        self._inflight.append((context, readback))
+    def dispatch(self, context, readback: _Readback, request: Hashable) -> None:
+        self._inflight.append((context, readback, request))
         while len(self._inflight) > 1:
             self._drain_one()
 
     def _drain_one(self) -> None:
-        context, readback = self._inflight.pop(0)
-        self._on_result(context, readback.wait())
+        context, readback, request = self._inflight.pop(0)
+        with trace.span("embed.readback_wait", request):
+            self._on_result(context, readback.wait())
 
     def finish(self) -> None:
         while self._inflight:
@@ -165,15 +167,19 @@ class _Staging:
             slots.append(self._new_slot(bucket))
         frames, mask, copied = slots[turn % self.depth]
         if copied is not None:
-            copied.synchronize()  # the slot's previous copy has left it
+            with trace.span("embed.slot_wait"):
+                copied.synchronize()  # the slot's previous copy has left it
         f, m = frames.numpy(), mask.numpy()
-        m[:] = False
-        for i, clip in enumerate(clips):
-            t = clip.shape[0]
-            f[i, :t] = clip
-            f[i, t:] = 0
-            m[i, :t] = True
-        f[len(clips):] = 0
+        with trace.span("embed.fill"):
+            m[:] = False
+            for i, clip in enumerate(clips):
+                t = clip.shape[0]
+                f[i, :t] = clip
+                f[i, t:] = 0
+                m[i, :t] = True
+            f[len(clips):] = 0
+        trace.count("embed.frames_staged", self.batch_size * bucket)
+        trace.count("embed.frames_useful", sum(clip.shape[0] for clip in clips))
         frames_dev = frames.to(self.device, non_blocking=True)
         mask_dev = mask.to(self.device, non_blocking=True)
         if copied is not None:
@@ -588,7 +594,10 @@ class FingerprintScanner:
                 return None
 
         with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
-            for (path, i, _, _), clip in zip(jobs, pool.map(load, jobs)):
+            clips = pool.map(load, jobs)
+            for path, i, _, _ in jobs:
+                with trace.span("decode.queue_wait"):
+                    clip = next(clips)
                 if clip is not None:
                     yield (path, i), clip
 
@@ -627,7 +636,11 @@ class FingerprintScanner:
                 work.put(done)
 
         threading.Thread(target=producer, daemon=True).start()
-        while (item := work.get()) is not done:
+        while True:
+            with trace.span("decode.queue_wait"):
+                item = work.get()
+            if item is done:
+                return
             yield item
 
     def embed_clips(self, clips: Iterable[Tuple[Hashable, np.ndarray]]
@@ -654,15 +667,19 @@ class FingerprintScanner:
         pipeline = _AsyncPipeline(on_result)
 
         def flush(bucket: int):
-            items = pending.pop(bucket)
-            clips = [clip for _, clip in items]
-            readbacks = []
-            with self._inference():
-                for staging in self._shards:
-                    lo = len(readbacks) * staging.batch_size
-                    frames, mask = staging.stage(bucket, clips[lo:lo + staging.batch_size])
-                    readbacks.append(_Readback(self._forward_batch(frames, mask)))
-            pipeline.dispatch(items, _Gathered(readbacks))
+            request = trace.new_request()
+            with trace.span("embed.batch", request):
+                items = pending.pop(bucket)
+                clips = [clip for _, clip in items]
+                readbacks = []
+                with self._inference():
+                    for staging in self._shards:
+                        lo = len(readbacks) * staging.batch_size
+                        frames, mask = staging.stage(bucket,
+                                                     clips[lo:lo + staging.batch_size])
+                        with trace.span("embed.forward"):
+                            readbacks.append(_Readback(self._forward_batch(frames, mask)))
+                pipeline.dispatch(items, _Gathered(readbacks), request)
 
         for key, clip in clips:
             if clip.dtype != self.stage_dtype or clip.shape[1:] != shape:
@@ -787,45 +804,46 @@ class FingerprintScanner:
         corpus entries...] when any entry clears the threshold. A corpus
         entry with the query's own path is skipped. Raises ValueError for
         an index of another model or embedding dimension."""
-        if not fingerprints or len(index) == 0:
-            return []
-        reason = identity_mismatch(index.model_identity, self.model_identity)
-        if reason:
-            raise ValueError(
-                f"corpus index was built by a different model ({reason}); "
-                f"its embeddings are not comparable with this checkpoint's")
-        if index.dim != self.embedding_dim:
-            raise ValueError(f"corpus index embedding dim {index.dim} != model "
-                             f"embedding dim {self.embedding_dim}")
+        with trace.span("against.call", trace.new_request()):
+            with trace.span("against.prepare"):
+                if not fingerprints or len(index) == 0:
+                    return []
+                reason = identity_mismatch(index.model_identity, self.model_identity)
+                if reason:
+                    raise ValueError(
+                        f"corpus index was built by a different model ({reason}); "
+                        f"its embeddings are not comparable with this checkpoint's")
+                if index.dim != self.embedding_dim:
+                    raise ValueError(f"corpus index embedding dim {index.dim} != model "
+                                     f"embedding dim {self.embedding_dim}")
+                paths = list(fingerprints.keys())
+                queries = np.stack([np.asarray(fingerprints[p]["embedding"], np.float32)
+                                    for p in paths])
+            sims, idx = index.search(queries, k=k, exact_above=similarity_threshold)
+            with trace.span("against.group"):
+                groups: List[List[dict]] = []
+                for qi, path in enumerate(paths):
+                    anchor = dict(fingerprints[path])
+                    anchor["similarity"] = 1.0
+                    group = [anchor]
+                    for sim, j in zip(sims[qi], idx[qi]):
+                        if sim < similarity_threshold:
+                            continue
+                        meta = index.meta(int(j))
+                        if meta.get("path") == path:
+                            continue
+                        item = dict(meta)
+                        item["similarity"] = float(sim)
+                        group.append(item)
+                    if len(group) > 1:
+                        groups.append(group)
 
-        paths = list(fingerprints.keys())
-        queries = np.stack([np.asarray(fingerprints[p]["embedding"], np.float32)
-                            for p in paths])
-        sims, idx = index.search(queries, k=k, exact_above=similarity_threshold)
-
-        groups: List[List[dict]] = []
-        for qi, path in enumerate(paths):
-            anchor = dict(fingerprints[path])
-            anchor["similarity"] = 1.0
-            group = [anchor]
-            for sim, j in zip(sims[qi], idx[qi]):
-                if sim < similarity_threshold:
-                    continue
-                meta = index.meta(int(j))
-                if meta.get("path") == path:
-                    continue
-                item = dict(meta)
-                item["similarity"] = float(sim)
-                group.append(item)
-            if len(group) > 1:
-                groups.append(group)
-
-        for group in groups:
-            hashes = [item.get("file_hash") for item in group]
-            for item in group:
-                item["exact_duplicate"] = (item.get("file_hash") is not None
-                                           and hashes.count(item["file_hash"]) > 1)
-        return groups
+                for group in groups:
+                    hashes = [item.get("file_hash") for item in group]
+                    for item in group:
+                        h = item.get("file_hash")
+                        item["exact_duplicate"] = h is not None and hashes.count(h) > 1
+                return groups
 
 
 def reduce_windows(embeddings: Sequence[np.ndarray], num_windows: int) -> np.ndarray:

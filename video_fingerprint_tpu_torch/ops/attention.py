@@ -27,7 +27,7 @@ Semantics follow video_fingerprint_tpu/ops/attention.py: scores, bias and
 softmax in f32, the bias is the finite finfo(f32).min / 2 for a masked key
 (so a fully masked row averages v instead of giving NaN), p is cast to v's
 dtype before the PV product, which accumulates in f32, and the output takes
-q's dtype.
+q's dtype. Each launch counts one `k1.launches` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -39,13 +39,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from video_fingerprint_tpu_torch.utils import trace
+
 KERNEL_WIDTHS = (32, 64, 128)  # tile widths the kernel is instantiated for
 WIDE = KERNEL_WIDTHS[-1]  # the wide kernel's columns per chunk
 MASKED_BIAS = torch.finfo(torch.float32).min / 2
-
-# Kernel launches since the last reset; chip_smoke.py reads it to show that
-# the scan went through the kernel.
-launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -140,7 +138,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k and v may be strided views (the head dimension contiguous); the
     output is allocated as (B, T, H, width) and returned as its
     (B, H, T, width) view, so the caller's merge of the heads is free."""
-    global launches
     B, H, T, D = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
@@ -165,7 +162,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError("attention kernel launch failed: "
                            + lib.vfp_error_string(err).decode())
-    launches += 1
+    trace.count("k1.launches")
     return out
 
 

@@ -22,7 +22,8 @@ product: `torch.matmul` on the CPU, `torch._int_mm` on a card). Nothing falls
 back: a CUDA input the kernel does not take raises, and so does any other
 device. `conv_int8_acc` gives the int32 sums alone (the kernel's check mode).
 The kernel takes k = 5 with Cin = 3 (conv0, int8 or uint8) and any odd k with
-Cin a multiple of 32 (int8), Cout a multiple of 32.
+Cin a multiple of 32 (int8), Cout a multiple of 32. Each launch counts one
+`conv_int8.<entry>` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -33,9 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since the last reset, per entry point; chip_smoke.py reads
-# them to show that the probe's int8 legs went through the kernel.
-launches = {"conv_int8": 0, "conv_int8_acc": 0}
+from video_fingerprint_tpu_torch.utils import trace
 
 K_ALIGN = 32  # the kernel's K chunk: packed weights are zero-padded to it
 MODE_INT8, MODE_BF16, MODE_ACC = 0, 1, 2
@@ -201,7 +200,7 @@ def _launch(x: torch.Tensor, pw: PackedWeight, w_scale, bias, mode: int,
     if err != 0:
         raise RuntimeError("int8 conv kernel launch failed: "
                            + lib.vfp_conv_int8_error_string(err).decode())
-    launches[name] += 1
+    trace.count(f"conv_int8.{name}")
     return out
 
 

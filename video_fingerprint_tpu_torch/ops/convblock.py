@@ -16,6 +16,7 @@ CUDA tensor the kernel cannot take raises, and so does any other device.
 The kernel is not on the scan's path: the spatial encoder's convs run in
 cuDNN, as the JAX package leaves them to XLA. It is the counterpart of the
 probe's kernels, for the probe (tools/convblock_probe.py) and chip_smoke.py.
+Each launch counts one `convblock.<entry>` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -26,12 +27,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_fingerprint_tpu_torch.utils import trace
+
 CIN, COUT, HW_IN, HW_OUT = 64, 128, 16, 8
 K = 9 * CIN
-
-# Kernel launches per entry point since the last reset; chip_smoke.py reads
-# them to show that the probe went through the kernel.
-launches = {"conv_parity": 0, "conv_strided": 0}
 
 _lib = None
 
@@ -163,7 +162,7 @@ def _conv_cuda(name: str, xs, w2d: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     if err != 0:
         raise RuntimeError("conv kernel launch failed: "
                            + lib.vfp_conv3x3s2_error_string(err).decode())
-    launches[name] += 1
+    trace.count(f"convblock.{name}")
     return out
 
 

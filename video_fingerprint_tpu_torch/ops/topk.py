@@ -44,8 +44,9 @@ exact f32 reciprocal row norms of both sides (`_row_rnorm`), so reported
 scores are true cosines of the stored vectors and byte-identical rows score
 1.0 to within an f32 rounding (JAX ops/topk.py:224-273).
 
-`repaired_rows` counts the rows the certified methods sent to the exact
-repair since import.
+The rows the certified methods send to the exact repair are counted as
+`topk.repaired_rows`, and each host wait on a device result (a `nonzero`)
+is a `topk.sync` span (utils/trace.py).
 
 `sharded_topk_search` and the ring `sharded_topk_cosine` run the same
 searches over a corpus row-sharded across a device list
@@ -69,6 +70,7 @@ from video_fingerprint_tpu_torch.parallel.distributed import (
     all_ranks_true,
     ring_shift,
 )
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
 QUERY_BLOCK = 1024  # queries per tile
@@ -86,8 +88,6 @@ _BF16_DOT_EPS = 0.0105
 # the norm rescale and the stored value's 2^-9; 0.0021, widened to 0.003
 # (JAX ops/topk.py:192-205).
 _BF16_STORE_EPS = 0.003
-
-repaired_rows = 0
 
 
 def _order(scores: torch.Tensor, idx: torch.Tensor, k: int
@@ -111,14 +111,16 @@ def _topk_low_index_ties(sims: torch.Tensor, k: int
     scores, idx = torch.topk(sims, k, dim=1)
     kth = scores[:, k - 1:k]
     split = (sims == kth).sum(dim=1) > (scores == kth).sum(dim=1)
-    rows = split.nonzero()[:, 0]
+    with trace.span("topk.sync"):
+        rows = split.nonzero()[:, 0]
     if len(rows):
         part, cut = sims[rows], kth[rows]
         above = part > cut
         tied = part == cut
         room = k - above.sum(dim=1, keepdim=True, dtype=torch.int32)
         take = above | (tied & (tied.cumsum(dim=1, dtype=torch.int32) <= room))
-        fixed = take.nonzero()[:, 1].view(len(rows), k)
+        with trace.span("topk.sync"):
+            fixed = take.nonzero()[:, 1].view(len(rows), k)
         scores[rows], idx[rows] = part.gather(1, fixed), fixed
     return _order(scores, idx, k)
 
@@ -371,15 +373,15 @@ def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     corpus is searched in the cosine domain of its stored rows.
     recall_target: the approximate stage's target, None for 0.99 (strict)
     or 0.95 (with exact_above)."""
-    global repaired_rows
     method, recall_target = _resolve_method(k, corpus.shape[0], method, exact_above,
                                             recall_target)
     p = _Problem(queries, corpus)
     with full_fp32():
         scores, idx, ok = _first_stage(p, k, method, recall_target, exact_above)
-        bad = (~ok).nonzero()[:, 0]
+        with trace.span("topk.sync"):
+            bad = (~ok).nonzero()[:, 0]
         if len(bad):
-            repaired_rows += len(bad)
+            trace.count("topk.repaired_rows", len(bad))
             scores[bad], idx[bad] = _exact(p.rows(bad), k)
         return scores, idx
 
@@ -536,7 +538,9 @@ def _corpus_rows(corpus: ShardedCorpus, rows: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((len(rows), corpus.shards[0].shape[1]), device=home)
     for i, shard in enumerate(corpus.shards):
         start = corpus.offset(i)
-        sel = ((rows >= start) & (rows < start + len(corpus.valid(i)))).nonzero()[:, 0]
+        held = (rows >= start) & (rows < start + len(corpus.valid(i)))
+        with trace.span("topk.sync"):
+            sel = held.nonzero()[:, 0]
         if len(sel):
             out[sel] = shard[(rows[sel] - start).to(shard.device)].float().to(home)
     return all_gather_stack(out).sum(dim=0)
@@ -565,7 +569,6 @@ def sharded_topk_search(queries, corpus, k: int, devices=None,
     its block, the ranks' candidate lists are gathered and merged, a row is
     certified only if every rank certified it (one all_reduce), the repairs
     go through the same merge, and every rank returns the same result."""
-    global repaired_rows
     if not isinstance(corpus, ShardedCorpus):
         corpus = stage_sharded_corpus(corpus, devices)
     if not isinstance(queries, torch.Tensor):
@@ -589,9 +592,11 @@ def sharded_topk_search(queries, corpus, k: int, devices=None,
         ok = torch.ones(m, dtype=torch.bool, device=home)
         for _, _, shard_ok in stages:
             ok &= shard_ok.to(home)
-        bad = (~all_ranks_true(ok)).nonzero()[:, 0]
+        ok = all_ranks_true(ok)
+        with trace.span("topk.sync"):
+            bad = (~ok).nonzero()[:, 0]
         if len(bad):
-            repaired_rows += len(bad)
+            trace.count("topk.repaired_rows", len(bad))
             fixes = [_exact(p.rows(bad.to(p.queries.device)), min(k, p.corpus.shape[0]))
                      for p, _ in problems]
             scores[bad], idx[bad] = _merge_shards(
@@ -620,7 +625,6 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
     Certified methods: a row is certified only if every tile certified it;
     the others are repaired by an exact `sharded_topk_search` over the same
     staged shards."""
-    global repaired_rows
     corpus = embeddings if isinstance(embeddings, ShardedCorpus) else \
         stage_sharded_corpus(embeddings, devices)
     method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
@@ -659,9 +663,10 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
             idx = torch.zeros((0, k), dtype=torch.int64, device=home)
             ok = torch.ones(0, dtype=torch.bool, device=home)
         scores, idx, ok = _gather_rows(corpus, scores, idx, ok, k)
-    bad = (~ok).nonzero()[:, 0]
+    with trace.span("topk.sync"):
+        bad = (~ok).nonzero()[:, 0]
     if len(bad):
-        repaired_rows += len(bad)
+        trace.count("topk.repaired_rows", len(bad))
         fix_s, fix_i = sharded_topk_search(_corpus_rows(corpus, bad), corpus, k,
                                            method="exact")
         scores[bad], idx[bad] = fix_s.to(home), fix_i.to(home)

@@ -31,21 +31,20 @@ JAX's multi-process mesh and `_replicate_for_host`) use three more:
 integers), `all_ranks_true` (the certificate's AND) and `ring_shift` (the
 ring's tile to the next rank). Under NCCL they run on the card; under gloo
 a CUDA tensor goes through the host, since gloo's gather and point-to-point
-take CPU tensors only. `collective_seconds` sums their host time since
-import: under gloo the collective with its host copies and the wait for
-the other ranks; under NCCL only the enqueue.
+take CPU tensors only. Each is a `collective` span (utils/trace.py): under
+gloo the collective with its host copies and the wait for the other ranks;
+under NCCL only the enqueue.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-collective_seconds = 0.0
+from video_fingerprint_tpu_torch.utils import trace
 
 
 def maybe_initialize_distributed(device: str | torch.device = "cuda",
@@ -166,18 +165,15 @@ def _on_backend(x: torch.Tensor) -> torch.Tensor:
 
 
 def _timed(fn, x: torch.Tensor) -> torch.Tensor:
-    """fn(x placed for the backend), returned on x's device, its host time
-    added to `collective_seconds`. Under gloo a CUDA tensor's copy to the
-    host waits for the card's queued work; the wait is taken before the
-    clock starts, so the clock times the collective (and the wait for the
-    other ranks to reach it)."""
-    global collective_seconds
+    """fn(x placed for the backend), returned on x's device, inside a
+    `collective` span. Under gloo a CUDA tensor's copy to the host waits for
+    the card's queued work; the wait is taken before the span opens, so the
+    span covers the collective (and the wait for the other ranks to reach
+    it)."""
     if x.is_cuda and dist.get_backend() == "gloo":
         torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
-    out = fn(_on_backend(x)).to(x.device)
-    collective_seconds += time.perf_counter() - t0
-    return out
+    with trace.span("collective"):
+        return fn(_on_backend(x)).to(x.device)
 
 
 def all_gather_stack(x: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ import torch
 from video_fingerprint_tpu_torch.ops import topk
 from video_fingerprint_tpu_torch.parallel.mesh import platform_devices
 from video_fingerprint_tpu_torch.tools.bench_common import describe_card, emit
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 
 SLAB = 1 << 20      # rows drawn at a time on the device
@@ -243,7 +244,7 @@ def run(args):
         return time.perf_counter() - t0, s, i
 
     warm, _, _ = timed()
-    repaired0 = topk.repaired_rows
+    repaired0 = trace.counter("topk.repaired_rows")
     times = []
     for _ in range(args.reps):
         dt, s_dev, i_dev = timed()
@@ -284,7 +285,8 @@ def run(args):
         "method": args.method,
         "exact_above": args.exact_above,
         "corpus_dtype": args.corpus_dtype,
-        "repaired_rows_per_search": (topk.repaired_rows - repaired0) / args.reps,
+        "repaired_rows_per_search": (trace.counter("topk.repaired_rows") - repaired0)
+                                     / args.reps,
         "verified": verified,
         "config": (("ring-sharded" if multi else "single card")
                    + f" top-k, method={args.method}, f32 scores (TF32 off)"

@@ -53,7 +53,6 @@ import torch
 
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
-from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.tools.bench_common import (
     H100_BF16_PEAK_FLOPS,
     describe_card,
@@ -63,6 +62,7 @@ from video_fingerprint_tpu_torch.tools.bench_common import (
     seeded_state_dict,
     widths_args,
 )
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.flops import forward_flops
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -138,7 +138,7 @@ def _capture(forward, staged: List[torch.Tensor]):
             forward(x)
     torch.cuda.current_stream().wait_stream(side)
     graphs, outputs, pool = [], [], None
-    before = attn.launches
+    before = trace.counter("k1.launches")
     for x in staged:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, pool=pool):
@@ -146,7 +146,7 @@ def _capture(forward, staged: List[torch.Tensor]):
         pool = g.pool()
         graphs.append(g)
     torch.cuda.synchronize()
-    return graphs, outputs, attn.launches - before
+    return graphs, outputs, trace.counter("k1.launches") - before
 
 
 def run(args) -> tuple[dict, np.ndarray]:
@@ -179,10 +179,10 @@ def run(args) -> tuple[dict, np.ndarray]:
         forward(staged[0])  # kernel build, cuDNN plans
         sync()
         out["headline_warmup_s"] = time.perf_counter() - t0
-        attn.launches = 0
+        before = trace.counter("k1.launches")
         emb = forward(staged[0])
         sync()
-        out["k1_launches_per_forward"] = attn.launches
+        out["k1_launches_per_forward"] = trace.counter("k1.launches") - before
 
         # pipelined dispatch: forwards queued back to back, one wait per window
         pipe = []

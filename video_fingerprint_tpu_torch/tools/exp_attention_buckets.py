@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.tools.bench_common import describe_card
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 from video_fingerprint_tpu_torch.utils.timing import capture_graph, replay_ms
@@ -93,9 +94,10 @@ def row_for(q, k, v, dtype_name: str, reps: int, timings: int) -> dict:
     err = float((out.float() - ref.float()).abs().max())
     if not err <= TOLERANCE[dtype_name]:
         raise AssertionError(f"K1 vs plain at T={T} D={D} {dtype_name}: max abs err {err}")
-    before = attn.launches
+    before = trace.counter("k1.launches")
     k1 = _us(lambda: attn.fused_attention(q, k, v), reps, timings)
-    launches = attn.launches - before - 1  # the warm-up call runs off the graph
+    # the warm-up call runs off the graph
+    launches = trace.counter("k1.launches") - before - 1
     if launches != reps:
         raise AssertionError(f"K1 launched {launches} times in a graph of {reps} calls")
     plain_us = _us(lambda: plain(q, k, v), reps, timings)

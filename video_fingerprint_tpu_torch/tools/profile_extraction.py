@@ -70,7 +70,6 @@ from torch import nn
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import space_to_depth_kernel
 from video_fingerprint_tpu_torch.models.layers import space_to_depth
-from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.tools.bench_common import (
     H100_BF16_PEAK_FLOPS,
     describe_card,
@@ -81,6 +80,7 @@ from video_fingerprint_tpu_torch.tools.bench_common import (
     widths_args,
 )
 from video_fingerprint_tpu_torch.tools.bench_headline import _event_ms, fused_model
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.flops import head_flops, spatial_conv_flops
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -445,10 +445,10 @@ def run(args) -> dict:
         with torch.no_grad():
             forward = lambda: model.forward_flat(flat, args.batch)
             result["kernels"] = kernel_attribution(model, flat, args.batch, args.trace)
-            attn.launches = 0
+            before = trace.counter("k1.launches")
             forward()
             torch.cuda.synchronize()
-            result["k1_launches_per_forward"] = attn.launches
+            result["k1_launches_per_forward"] = trace.counter("k1.launches") - before
             result["headline_forward_ms"] = _event_ms(forward)
         result["kernels"]["traced_share"] = (result["kernels"]["device_ms"]
                                              / result["headline_forward_ms"])

@@ -41,6 +41,7 @@ from __future__ import annotations
 import json
 import sys
 import time
+from contextlib import ExitStack
 from datetime import datetime
 from pathlib import Path
 from typing import Dict, Optional
@@ -69,6 +70,7 @@ from video_fingerprint_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
 )
+from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.device import resolve_device
 from video_fingerprint_tpu_torch.utils.torch_compat import (
     adamw_to_opt_state,
@@ -274,7 +276,7 @@ class Trainer:
         # --profile: a torch.profiler trace of steps 2-5 of the first epoch
         profile_window = ((2, 6) if (self.config.get("profile") and self.epoch == 0
                                      and self.is_main) else None)
-        profiler = None
+        profiler = ExitStack()
 
         loader = self.train_loader
         if self.is_main:
@@ -290,7 +292,8 @@ class Trainer:
         last_sync_batches = 0
         for batch in loader:
             if profile_window and num_batches == profile_window[0]:
-                profiler = self._start_profiler()
+                profiler.enter_context(trace.profile(self.run_dir / "profile",
+                                                     self.device))
             dev = _to_device(batch, self.device)
             draws = self._draws(dev, self.step_generator, self.extract_ratio,
                                 augment=self.augment_generator is not None)
@@ -319,11 +322,9 @@ class Trainer:
                 last_t = time.time()
                 last_sync_batches = num_batches
             self.global_step += 1
-            if profiler is not None and num_batches >= profile_window[1]:
-                self._stop_profiler(profiler)
-                profiler = None
-        if profiler is not None:
-            self._stop_profiler(profiler)
+            if profile_window and num_batches == profile_window[1]:
+                profiler.close()
+        profiler.close()
 
         epoch_time = time.time() - epoch_t0
         out: Dict[str, float] = {}
@@ -333,25 +334,6 @@ class Trainer:
                     out[k] = float(v) / num_batches
         out["time_per_batch"] = epoch_time / max(1, num_batches)
         return out
-
-    def _start_profiler(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
-
-    def _stop_profiler(self, profiler):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        profiler.stop()
-        out = self.run_dir / "profile"
-        out.mkdir(parents=True, exist_ok=True)
-        profiler.export_chrome_trace(str(out / "trace.json"))
-        print(f"profiler trace written to {out}")
 
     # ------------------------------------------------------------------
     def validate(self) -> Dict[str, float]:
