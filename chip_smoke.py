@@ -52,7 +52,12 @@ Phases, each of which raises (exit code 1) on any failure:
      FingerprintIndex(device="cuda") over 1,000,000 x 256 seeded rows with
      256 planted near copies, 4,096 queries at k = 20 in f32 and bf16
      storage against a float64 oracle; topk_cosine self-search at
-     100,000 x 256; their times beside the bound;
+     100,000 x 256; their times beside the bound; the exact search's
+     kernel (csrc/topk.cu, K5) at the benchmark's 256 queries x 10^6 x
+     256, k = 20, f32 and bf16 storage: its launches (also counted around
+     the index's searches above), its rows against the plain version's, and its device time beside the bound, the plain
+     version and the library yardstick (torch.matmul + torch.topk per
+     block, which the port never calls);
   8. training: the attention kernel at head dims 4, 16 and 64 (zero-padded
      to its widths 32 and 64) against its plain version, f32 and bf16; one
      train step of the seeded full-width attention model on the card held
@@ -197,10 +202,13 @@ the card's busy share under torch.profiler, and the process's threads, the
 allocator's cudaMalloc/cudaFree counts and the card's clocks, temperature
 and power around the timed steps.
 
-Neither the 3D nor the index path has a hand-written kernel (cuDNN runs the
-3D convs, cuBLAS the similarity matmuls, as XLA does in the JAX package);
-their runs hold every kernel's launch count at zero. Train-mode attention
-is plain torch math, as in the JAX package; K1 runs in validation.
+The 3D path has no hand-written kernel (cuDNN runs its convs, as XLA does
+in the JAX package): its runs hold every hand kernel's launch count at
+zero. The index path's exact search is K5 alone: the index's own searches,
+the CLI's --against search and the sharded search (one search a shard)
+hold K1, K2 and K3 at zero and K5 at two launches a search. Train-mode
+attention is plain torch math, as in the JAX package; K1 runs in
+validation.
 
 The second-to-last line is {"kernels": [...]}, one entry per kernel of the
 path; the last line is {"ok": true, "device": {...}}. Needs no network.
@@ -822,7 +830,7 @@ CARD = "cuda"  # the device of the phases below
 
 
 LAUNCH_COUNTERS = {"attention": "k1.launches", "conv_parity": "convblock.conv_parity",
-                   "conv_strided": "convblock.conv_strided"}
+                   "conv_strided": "convblock.conv_strided", "topk": "topk.launches"}
 
 
 def _launch_counts(*kernels):
@@ -836,6 +844,15 @@ def _launch_counts(*kernels):
 def _launches(since):
     """Launches by kernel since `since`, a `_launch_counts()`."""
     return {k: n - since[k] for k, n in _launch_counts(*since).items()}
+
+
+def _require_search_launches(launches: dict, searches: int, what: str) -> None:
+    """A search on the card runs K5 (two launches a search) and no other
+    hand kernel."""
+    others = {k: n for k, n in launches.items() if k != "topk" and n}
+    require(not others, f"{what}: another hand kernel ran: {others}")
+    require(launches["topk"] == 2 * searches,
+            f"{what}: K5 launched {launches['topk']} times, not 2 x {searches} searches")
 
 
 def _write_model_3d(torch, path: Path, rng) -> None:
@@ -1123,6 +1140,79 @@ def _search_bound_ms(m: int, n: int, corpus_bytes: int, dtype_name: str = "float
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+K5_QUERIES, K5_K = 256, 20  # the search-against-1m cell's call
+
+
+def _k5_library(torch, p, k: int):
+    """The library yardstick of K5: torch.matmul and torch.topk per corpus
+    block of the plain path's width, the blocks' picks merged by one
+    torch.topk (no tie pass; the port never calls this)."""
+    from video_fingerprint_tpu_torch.ops import topk
+
+    cand_s, cand_i = [], []
+    for lo in range(0, p.corpus.shape[0], topk.CORPUS_BLOCK):
+        s, i = torch.topk(p.sims(0, lo), k, dim=1)
+        cand_s.append(s)
+        cand_i.append(i + lo)
+    s, at = torch.topk(torch.cat(cand_s, dim=1), k, dim=1)
+    return s, torch.cat(cand_i, dim=1).gather(1, at)
+
+
+def _k5(torch, smi: str):
+    """K5 at the benchmark's call, 256 of the index phase's queries (the
+    planted pairs' sources) against its 10^6 rows, k = 20, f32 and bf16
+    storage: two launches a search, the rows of the plain version wherever
+    its scores around a rank lie 1e-5 apart and scores within 2e-6, every
+    planted copy found; device time (CUDA events, back-to-back calls) beside
+    the bound (2 M N D at the f32 FFMA peak, or the corpus once), the plain
+    version and the library yardstick."""
+    from video_fingerprint_tpu_torch.ops import topk
+    from video_fingerprint_tpu_torch.utils import trace
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    corpus, src, dst, _, queries, _, _ = _index_data()
+    q = torch.from_numpy(queries[:K5_QUERIES]).to(CARD)
+    rows = {}
+    for storage, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        staged = topk.stage_corpus(corpus, CARD, dtype)
+        p = topk._Problem(q, staged)
+        before = trace.counter("topk.launches")
+        scores, idx = topk._exact(p, K5_K)
+        torch.cuda.synchronize()
+        launches = trace.counter("topk.launches") - before
+        require(launches == 2, f"K5 {storage}: {launches} launches, not 2")
+        with full_fp32():
+            plain_s, plain_i = (t.cpu().numpy() for t in topk._exact_plain(p, K5_K + 1))
+        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        err = float(np.abs(scores - plain_s[:, :K5_K]).max())
+        require(err <= 2e-6, f"K5 {storage}: scores {err} from the plain version's")
+        gap = plain_s[:, :-1] - plain_s[:, 1:]
+        above = np.concatenate([np.full((len(q), 1), np.inf), gap[:, :K5_K - 1]], axis=1)
+        apart = (above > 1e-5) & (gap[:, :K5_K] > 1e-5)
+        require(np.array_equal(idx[apart], plain_i[:, :K5_K][apart]),
+                f"K5 {storage}: rows differ from the plain version's where scores are apart")
+        for j in range(K5_QUERIES):
+            require(idx[j, 0] == src[j] and int(dst[j]) in idx[j].tolist(),
+                    f"K5 {storage}: query {j} misses its row or its planted copy")
+        kernel_ms = cuda_ms(lambda: topk._exact(p, K5_K), window_ms=300)
+        with full_fp32():
+            plain_ms = cuda_ms(lambda: topk._exact_plain(p, K5_K), window_ms=300)
+            library_ms = cuda_ms(lambda: _k5_library(torch, p, K5_K), window_ms=300)
+        bound_ms, bound_by = _search_bound_ms(K5_QUERIES, INDEX_ROWS,
+                                              staged.numel() * staged.element_size())
+        rows[storage] = {"launches_per_search": launches, "max_score_err": err,
+                         "rows_compared": int(apart.sum()), "ms": kernel_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "kernels": _device_kernels(torch, lambda: topk._exact(p, K5_K))}
+        emit({"phase": "index", "check": "k5", "storage": storage, "smi": smi,
+              **rows[storage]})
+        del staged, p
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _unit_rows(rng, n):
     x = rng.standard_normal((n, EMB_DIM), dtype=np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
@@ -1297,9 +1387,13 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         cpu = _index_cli(torch, workdir, model_path, "cpu", storage)
         require(card["groups"] == cpu["groups"], f"index CLI {storage}: card {card} cpu {cpu}")
         require(launches["attention"] > 0, "the index CLI's scans did not run K1")
-        flows[storage] = {**card, "attention_launches": launches["attention"]}
+        require(launches["topk"] == 2, f"the index CLI's --against search launched K5 "
+                                       f"{launches['topk']} times, not 2")
+        flows[storage] = {**card, "attention_launches": launches["attention"],
+                          "topk_launches": launches["topk"]}
 
     # (b) 1,000,000 seeded unit rows with 256 planted near copies
+    k5 = _k5(torch, smi)
     corpus, src, dst, planted_cos, queries, checked, emb = _index_data()
     search = {}
     for storage in ("f32", "bf16"):
@@ -1312,7 +1406,9 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         t0 = time.perf_counter()
         scores, idx = index.search(queries, k=20, exact_above=0.99)
         search_s = time.perf_counter() - t0
-        require(not any(_launches(mark).values()), "a hand kernel ran in the index search")
+        launches = _launches(mark)
+        _require_search_launches(launches, 2, f"index search {storage}")
+        k5[storage]["main_path_launches_per_search"] = launches["topk"] // 2
         for j in range(256):  # every planted copy, from both sides
             for row, other in ((j, dst[j]), (256 + j, src[j])):
                 hits = dict(zip(idx[row].tolist(), scores[row].tolist()))
@@ -1328,6 +1424,7 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         search[storage] = {"ms": ms, "queries_per_s": INDEX_QUERIES / ms * 1e3,
                            "bound_ms": bound_ms, "bound_by": bound_by,
                            "search_s": search_s, "first_search_s": first_s,
+                           "k5_launches_per_search": launches["topk"] // 2,
                            "oracle_rows": len(checked), "max_score_err": err,
                            "planted_min_cos": float(planted_cos.min()),
                            "profile": _kernel_times(torch, lambda: topk_search(
@@ -1366,6 +1463,7 @@ def phase_index(torch, workdir: Path, model_path: Path, smi: str):
         "self-search", smi)
     emit({"phase": "index", "cli": flows, "rows": INDEX_ROWS, "queries": INDEX_QUERIES,
           "k": 20, "search": search})
+    return k5
 
 
 # ---------------------------------------------------------------- training
@@ -2262,7 +2360,8 @@ def _dp_search(torch, smi: str):
         q_dev = torch.from_numpy(queries).to(CARD)
         mark = _launch_counts()
         scores, idx = (t.cpu().numpy() for t in topk.sharded_topk_search(q_dev, staged, 20))
-        require(not any(_launches(mark).values()), "a hand kernel ran in the sharded search")
+        _require_search_launches(_launches(mark), len(devices),
+                                 f"sharded search {storage} (a search a shard)")
         ref_s, ref_i = (t.cpu().numpy() for t in topk.topk_search(q_dev, single, 20))
         require(bool((idx == ref_i).all()), f"sharded {storage}: indices differ from one card")
         diff = float(np.abs(scores - ref_s).max())
@@ -3594,7 +3693,7 @@ def main(argv=None) -> int:
             elif name == "scan3d":
                 phase_scan3d(torch, work)
             elif name == "index":
-                phase_index(torch, work, model_path, smi)
+                k5 = phase_index(torch, work, model_path, smi)
             elif name == "train":
                 phase_train(torch, work, smi)
             elif name == "augment":
@@ -3649,6 +3748,20 @@ def main(argv=None) -> int:
         **{key: k4[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library",
                                     "library_cudnn_bf16_conv1_ms", "layers")},
+    }, {
+        "name": "topk",
+        "route": "cuda",
+        "source": "video_fingerprint_tpu_torch/csrc/topk.cu",
+        "replaces": "ops/topk.py::_exact_plain",
+        "replaces_what": "matmul, torch.topk and the tie pass of the exact search; "
+                         "not a Pallas kernel (XLA's matmul and lax.top_k)",
+        "launches": k5["f32"]["main_path_launches_per_search"],
+        "launches_counted": "per FingerprintIndex.search at the index phase's 4,096 x 10^6",
+        "max_abs_err": k5["f32"]["max_score_err"],
+        **{key: k5["f32"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+        "bf16": {key: k5["bf16"][key] for key in ("max_score_err", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

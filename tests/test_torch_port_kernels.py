@@ -311,3 +311,134 @@ def test_int8_conv_kernel_refuses_what_it_does_not_take(card):
         ci.conv_int8(torch.zeros((2, 8, 8, 16), dtype=torch.int8, device="cuda"), w16,
                      w_scale[:32], bias[:32], requant)
     assert _launches("conv_int8", INT8_ENTRIES) == before
+
+
+# ------------------------------------------------------- exact top-k (K5)
+
+# (M, N, D, k): every M, N, D and k of the kernel's range the search takes
+# at least once, with query tiles, corpus tiles and chunks cut ragged; D = 37
+# takes the loader that copies value by value (rows not 16-byte aligned)
+TOPK_CASES = [(1, 20, 32, 20), (1, 20, 256, 1), (5, 1000, 256, 20), (5, 1000, 1000, 256),
+              (256, 65537, 256, 20), (256, 65537, 32, 256), (256, 200003, 1000, 1),
+              (1030, 200003, 256, 20), (1030, 65537, 1000, 20), (1030, 1000, 32, 256),
+              (5, 1000, 37, 20)]
+TOPK_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _tied_rows(n, chunk_rows, size):
+    """`size` distinct corpus rows on the edges of the kernel's 128-row tiles
+    and of its chunks (the rows on either side of each), and the last row,
+    then the lowest others."""
+    edges = [e + s for e in range(128, n, 128) for s in (-1, 0)]
+    edges = [e for e in range(chunk_rows, n, chunk_rows) for e in (e - 1, e)] + edges
+    picked = list(dict.fromkeys([n - 1] + [e for e in edges if e < n]))[:size]
+    taken = set(picked)
+    rest = [r for r in range(n) if r not in taken][:size - len(picked)]
+    return np.array(sorted(picked + rest))
+
+
+def _topk_problem(M, N, D, k, storage):
+    """Seeded unit queries and corpus on the card; a group of min(k + 3, N)
+    byte-identical corpus rows on tile and chunk edges, which query rows 0
+    and M - 1 equal; the search's problem and its tied group."""
+    from video_fingerprint_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(M * 7 + N + D + k)
+    corpus, queries = _unit_rows(rng, N, D), _unit_rows(rng, M, D)
+    slots = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    group = _tied_rows(N, topk.kernel_plan(M, N, slots)[2], min(k + 3, N))
+    corpus[group] = corpus[group[0]]
+    queries[0] = queries[-1] = corpus[group[0]]
+    c = torch.from_numpy(corpus).cuda().to(storage)
+    return topk._Problem(torch.from_numpy(queries).cuda(), c), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", TOPK_STORAGE, ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,N,D,k", TOPK_CASES)
+def test_topk_kernel_matches_plain(card, M, N, D, k, storage):
+    """Two launches; scores within 2e-6 of the plain version's rank by rank,
+    the same rows wherever the plain scores around a rank are 1e-5 apart,
+    and on the query rows that equal the tied group its lowest rows first,
+    in ascending order, at one score."""
+    from video_fingerprint_tpu_torch.ops import topk
+
+    p, group = _topk_problem(M, N, D, k, storage)
+    before = trace.counter("topk.launches")
+    scores, idx = topk._exact(p, k)
+    torch.cuda.synchronize()
+    assert trace.counter("topk.launches") == before + 2
+    assert scores.shape == idx.shape == (M, k)
+    assert scores.dtype == torch.float32 and idx.dtype == torch.int64
+    with full_fp32():
+        plain_s, plain_i = (t.cpu().numpy() for t in topk._exact_plain(p, min(k + 1, N)))
+    scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+    assert np.abs(scores - plain_s[:, :k]).max() <= 2e-6
+    gap = np.diff(plain_s, axis=1) * -1  # plain_s[:, j] - plain_s[:, j + 1]
+    above = np.concatenate([np.full((M, 1), np.inf), gap[:, :k - 1]], axis=1)
+    below = gap[:, :k] if plain_s.shape[1] > k else np.concatenate(
+        [gap, np.full((M, 1), np.inf)], axis=1)
+    apart = (above > 1e-5) & (below > 1e-5)
+    assert np.array_equal(idx[apart], plain_i[:, :k][apart])
+    tied = min(len(group), k)
+    for row in (0, M - 1):
+        assert np.array_equal(idx[row, :tied], group[:tied]), row
+        assert np.all(scores[row, :tied] == scores[row, 0]), row
+    assert np.all((idx >= 0) & (idx < N))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", TOPK_STORAGE, ids=["f32", "bf16"])
+def test_topk_search_on_the_card_has_no_host_wait(card, storage):
+    """topk_search(method="exact") on the card: the kernel's two launches
+    and no `topk.sync` span; the certified methods still wait on their
+    certificate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_fingerprint_tpu_torch.ops import topk
+
+    p, _ = _topk_problem(256, 65537, 256, 20, storage)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        before = trace.counter("topk.launches")
+        topk.topk_search(p.queries, p.corpus, 20, exact_above=0.99, method="exact")
+        assert trace.counter("topk.launches") == before + 2
+        assert not [s for s in trace.recorded().spans if s.name == "topk.sync"]
+        topk.topk_search(p.queries, p.corpus, 20, exact_above=0.95, method="certified")
+    assert [s for s in trace.recorded().spans if s.name == "topk.sync"]
+    trace.clear()
+
+
+@pytest.mark.gpu
+def test_topk_kernel_refuses_what_it_does_not_take(card):
+    """k past 256, D past 1024, a strided input, a float16 corpus, float64
+    queries, mismatched widths, one norm vector alone: ValueError or
+    TypeError before any launch."""
+    from video_fingerprint_tpu_torch.ops import topk
+
+    q = torch.zeros((4, 64), device="cuda")
+    c = torch.zeros((300, 64), device="cuda")
+    before = trace.counter("topk.launches")
+    with pytest.raises(ValueError, match="k <="):
+        topk.topk_kernel(q, c, 257)
+    with pytest.raises(ValueError, match="D <="):
+        topk.topk_kernel(torch.zeros((4, 1025), device="cuda"),
+                         torch.zeros((300, 1025), device="cuda"), 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.topk_kernel(torch.zeros((64, 4), device="cuda").t(), c, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.topk_kernel(q, torch.zeros((300, 128), device="cuda")[:, ::2], 20)
+    with pytest.raises(TypeError, match="corpus"):
+        topk.topk_kernel(q, c.half(), 20)
+    with pytest.raises(TypeError, match="queries"):
+        topk.topk_kernel(q.double(), c, 20)
+    with pytest.raises(ValueError, match="\\(M, D\\)"):
+        topk.topk_kernel(q, torch.zeros((300, 32), device="cuda"), 20)
+    with pytest.raises(ValueError, match="both"):
+        topk.topk_kernel(q, c.bfloat16(), 20, query_rnorm=torch.ones(4, device="cuda"))
+    assert trace.counter("topk.launches") == before

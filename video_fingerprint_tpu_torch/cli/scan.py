@@ -19,7 +19,8 @@ clips padded into the slot), `embed.forward` (the forward's launch) and
 `embed.readback_wait` (the previous batch's result); `decode.queue_wait`
 (the batching stage waiting for decoded clips); per `--against` call
 `against.call`, holding `against.prepare`, `index.search` (with
-`index.upload`, `topk.sync` and `index.readback`) and `against.group`.
+`index.upload`, `index.readback` and, off the card or for a certified
+method, `topk.sync`) and `against.group`.
 The trace grows with the scan: use it on a sample folder.
 """
 

@@ -30,19 +30,28 @@ maxima. L is XLA's choice for k and `recall_target` (`approx_bins`); the
 default target is 0.99 for the strict certificate and 0.95 with a
 threshold.
 
-Queries go in tiles of QUERY_BLOCK and the corpus in blocks of CORPUS_BLOCK
-rows, so one score block holds 1024 x 65,536 scores whatever the corpus
-size; each block's top-k is merged into the tile's. The certified methods
+The plain exact path and the certified methods take the queries in tiles
+of QUERY_BLOCK and the corpus in blocks of CORPUS_BLOCK rows, so one score
+block holds 1024 x 65,536 scores whatever the corpus size; each block's
+top-k is merged into the tile's. The certified methods
 certify each (tile, block) pair and a row only when every block
 certified it. Scores are float32 with TF32 off: duplicate thresholds sit at
 0.95-0.99 and need errors near 1e-6, not TF32's 1e-3.
 
 A bfloat16 corpus (the index's bf16 storage, `stage_corpus`) stays bf16 on
-the device; each block is upcast to f32 (exact for bf16 values) just before
-its matmul. Queries are rounded to bf16 first, and sims are rescaled by
+the device; each block (or, in the kernel, each value) is upcast to f32
+(exact for bf16 values) just before its product. Queries are rounded to
+bf16 first, and sims are rescaled by
 exact f32 reciprocal row norms of both sides (`_row_rnorm`), so reported
 scores are true cosines of the stored vectors and byte-identical rows score
 1.0 to within an f32 rounding (JAX ops/topk.py:224-273).
+
+On a card the exact search is one hand-written kernel (`topk_kernel`,
+csrc/topk.cu): the f32 scores and the (score desc, index asc) selection
+fused, so no score block reaches device memory and the host never waits.
+Elsewhere it is the plain version (`_exact_plain`), whose tie pass makes
+torch.topk's pick follow that order. Each launch of either of the
+kernel's two parts counts one `topk.launches`.
 
 The rows the certified methods send to the exact repair are counted as
 `topk.repaired_rows`, and each host wait on a device result (a `nonzero`)
@@ -58,6 +67,7 @@ corpus and returning the same result (JAX's multi-process mesh).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from contextlib import contextmanager
 from typing import Optional, Tuple
@@ -76,6 +86,13 @@ from video_fingerprint_tpu_torch.utils.precision import full_fp32
 QUERY_BLOCK = 1024  # queries per tile
 CORPUS_BLOCK = 1 << 16  # corpus rows per score block
 METHODS = ("auto", "exact", "certified", "certified-bf16")
+# csrc/topk.cu: queries per block and corpus rows per tile, and its limits
+KERNEL_TILE = 128
+KERNEL_MAX_K = 256
+KERNEL_MAX_D = 1024
+KERNEL_MAX_N = 1 << 30
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
 # approx_max_k's reduction keeps at least this many bins (XLA's TPU tiling)
 _MIN_BINS = 128
 
@@ -273,7 +290,115 @@ def _merge(cand_s, cand_i, k):
     return _order(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1), k)
 
 
+def _library():
+    global _lib
+    if _lib is None:
+        from video_fingerprint_tpu_torch.ops import _build
+
+        lib = _build.load("topk")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.vfp_topk_search.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+        lib.vfp_topk_search.restype = i32
+        lib.vfp_topk_error_string.argtypes = [i32]
+        lib.vfp_topk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"top-k kernel {what} failed: "
+                           + lib.vfp_topk_error_string(err).decode())
+
+
+def list_capacity(k: int) -> int:
+    """Entries of a (query, chunk) candidate list: the power of two above k,
+    at least 32 (on the card, 32 beat 64 and 128 at k = 20)."""
+    return max(32, 1 << k.bit_length())
+
+
+def kernel_plan(m: int, n: int, slots: int) -> Tuple[int, int, int]:
+    """(query tiles, chunks, rows a chunk) of one kernel search: the corpus
+    cut into chunks of whole 128-row tiles, as many as let query tiles x
+    chunks fill `slots` (the blocks the card holds at once: one an SM, as
+    csrc/topk.cu says) without passing it, and at least one."""
+    q_tiles = -(-m // KERNEL_TILE)
+    tiles = -(-n // KERNEL_TILE)
+    chunks = max(1, min(tiles, slots // q_tiles))
+    chunk_rows = -(-tiles // chunks) * KERNEL_TILE
+    return q_tiles, -(-n // chunk_rows), chunk_rows
+
+
+def topk_kernel(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                query_rnorm: Optional[torch.Tensor] = None,
+                corpus_rnorm: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hand-written exact search on a card: (M, D) f32 queries x (N, D)
+    f32 or bf16 corpus -> each query's k best rows by (score desc, index
+    asc), (scores (M, k) f32, indices (M, k) int64). With both reciprocal
+    norm vectors (M,) and (N,) each score is (q . c * corpus_rnorm) *
+    query_rnorm, `_Problem.sims`'s cosine domain. Takes M >= 1, k <= N <
+    2^30, 1 <= k <= 256, D <= 1024, contiguous inputs on one card, and
+    raises on anything else. Two launches, counted as `topk.launches`."""
+    tensors = {"queries": queries, "corpus": corpus}
+    if (query_rnorm is None) != (corpus_rnorm is None):
+        raise ValueError("give both reciprocal norm vectors or neither")
+    if query_rnorm is not None:
+        tensors.update(query_rnorm=query_rnorm, corpus_rnorm=corpus_rnorm)
+    for name, x in tensors.items():
+        if x.device != queries.device or not x.is_cuda:
+            raise ValueError(f"{name} must be on the queries' card, got {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if queries.dtype != torch.float32:
+        raise TypeError(f"queries must be float32, got {queries.dtype}")
+    if corpus.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"corpus must be float32 or bfloat16, got {corpus.dtype}")
+    if queries.dim() != 2 or corpus.dim() != 2 or queries.shape[1] != corpus.shape[1]:
+        raise ValueError(f"need (M, D) queries and (N, D) corpus, got {tuple(queries.shape)} "
+                         f"and {tuple(corpus.shape)}")
+    (m, d), n = queries.shape, corpus.shape[0]
+    if not (m >= 1 and 1 <= k <= min(n, KERNEL_MAX_K) and 1 <= d <= KERNEL_MAX_D
+            and n < KERNEL_MAX_N):
+        raise ValueError(f"the top-k kernel takes M >= 1, 1 <= k <= min(N, {KERNEL_MAX_K}), "
+                         f"D <= {KERNEL_MAX_D}, N < 2^30; got M={m}, N={n}, D={d}, k={k}")
+    if query_rnorm is not None:
+        for name, x, rows in (("query_rnorm", query_rnorm, m), ("corpus_rnorm", corpus_rnorm, n)):
+            if x.dtype != torch.float32 or x.shape != (rows,):
+                raise ValueError(f"{name} must be ({rows},) float32, got "
+                                 f"{tuple(x.shape)} {x.dtype}")
+    lib = _library()
+    cap = list_capacity(k)
+    slots = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    _, chunks, chunk_rows = kernel_plan(m, n, slots)
+    scratch = torch.empty((m, chunks, cap, 2), dtype=torch.int32, device=queries.device)
+    scores = torch.empty((m, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((m, k), dtype=torch.int64, device=queries.device)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        err = lib.vfp_topk_search(
+            queries.data_ptr(), corpus.data_ptr(),
+            None if query_rnorm is None else query_rnorm.data_ptr(),
+            None if corpus_rnorm is None else corpus_rnorm.data_ptr(),
+            scratch.data_ptr(), scores.data_ptr(), idx.data_ptr(),
+            m, n, d, k, cap, chunks, chunk_rows, _KERNEL_DTYPES[corpus.dtype], stream)
+    _check(lib, err, "launch")
+    trace.count("topk.launches", 2)
+    return scores, idx
+
+
 def _exact(p: _Problem, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's k best corpus rows by (score desc, index asc): the
+    hand-written kernel on a card, the plain version elsewhere."""
+    if p.queries.is_cuda:
+        norms = (p.query_rnorm, p.corpus_rnorm) if p.cosine else (None, None)
+        return topk_kernel(p.queries, p.corpus, k, *norms)
+    return _exact_plain(p, k)
+
+
+def _exact_plain(p: _Problem, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain exact search: a score block per (query tile, corpus block),
+    its top-k with the tie pass, merged."""
     n = p.corpus.shape[0]
     out_s, out_i = [], []
     for qlo in range(0, p.queries.shape[0], QUERY_BLOCK):
@@ -356,11 +481,11 @@ def _resolve_method(k: int, n: int, method: str, exact_above: Optional[float],
 
 def _first_stage(p: _Problem, k: int, method: str, recall: float,
                  thr: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(scores, indices, ok) of one problem: exact (every row ok), or the
+    """(scores, indices, ok) of one problem: exact (ok None: every row is
+    exact by construction, so there is no certificate to wait on), or the
     certified first stage whose failed rows the caller repairs."""
     if method == "exact":
-        s, i = _exact(p, k)
-        return s, i, torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+        return (*_exact(p, k), None)
     return _certified(p, k, recall, thr, method == "certified-bf16")
 
 
@@ -378,6 +503,8 @@ def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     p = _Problem(queries, corpus)
     with full_fp32():
         scores, idx, ok = _first_stage(p, k, method, recall_target, exact_above)
+        if ok is None:
+            return scores, idx
         with trace.span("topk.sync"):
             bad = (~ok).nonzero()[:, 0]
         if len(bad):
@@ -516,17 +643,22 @@ def _merge_shards(corpus: ShardedCorpus, cand_s, cand_i, k: int, m: int
 def _gather_rows(corpus: ShardedCorpus, scores, idx, ok, k: int):
     """This rank's (rows of its block, k) ring results -> the (N, k) results
     of every rank, the same on every rank (each rank's rows padded to
-    `block` for the gather, the padding dropped after it)."""
+    `block` for the gather, the padding dropped after it). An `ok` of None
+    (the exact method) stays None and is not gathered."""
     home, b = corpus.devices[0], corpus.block
+    m = scores.shape[0]
     s = torch.full((b, k), -math.inf, device=home)
     i = torch.zeros((b, k), dtype=torch.int64, device=home)
-    o = torch.ones(b, dtype=torch.uint8, device=home)
-    m = scores.shape[0]
-    s[:m], i[:m], o[:m] = scores, idx, ok.to(torch.uint8)
-    every = [all_gather_stack(x) for x in (s, i, o)]
+    s[:m], i[:m] = scores, idx
+    padded = [s, i]
+    if ok is not None:
+        o = torch.ones(b, dtype=torch.uint8, device=home)
+        o[:m] = ok.to(torch.uint8)
+        padded.append(o)
+    every = [all_gather_stack(x) for x in padded]
     counts = [corpus.block_rows(r) for r in range(corpus.world)]
-    s, i, o = (torch.cat([x[r, :c] for r, c in enumerate(counts)]) for x in every)
-    return s, i, o.bool()
+    out = [torch.cat([x[r, :c] for r, c in enumerate(counts)]) for x in every]
+    return out[0], out[1], out[2].bool() if ok is not None else None
 
 
 def _corpus_rows(corpus: ShardedCorpus, rows: torch.Tensor) -> torch.Tensor:
@@ -589,6 +721,8 @@ def sharded_topk_search(queries, corpus, k: int, devices=None,
         scores, idx = _merge_shards(corpus, [s for s, _, _ in stages],
                                     [j + off for (_, j, _), (_, off) in zip(stages, problems)],
                                     k, m)
+        if method == "exact":
+            return scores, idx
         ok = torch.ones(m, dtype=torch.bool, device=home)
         for _, _, shard_ok in stages:
             ok &= shard_ok.to(home)
@@ -628,6 +762,7 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
     corpus = embeddings if isinstance(embeddings, ShardedCorpus) else \
         stage_sharded_corpus(embeddings, devices)
     method, recall_target = _resolve_method(k, corpus.n, method, exact_above, recall_target)
+    exact = method == "exact"  # no certificate to gather or wait on
     d, home = len(corpus.shards), corpus.devices[0]
     ring = corpus.world * d
     mine = [corpus.rank * d + i for i in range(d)]  # this rank's shards in the ring
@@ -652,17 +787,19 @@ def sharded_topk_cosine(embeddings, k: int, devices=None,
                     cs, cj, cok = carry[i]
                     cs, cj = _order(torch.cat([cs, s], dim=1), torch.cat([cj, j], dim=1),
                                     min(k, cs.shape[1] + s.shape[1]))
-                    carry[i] = (cs, cj, cok & ok)
+                    carry[i] = (cs, cj, None if ok is None else cok & ok)
         parts = [c for c in carry if c is not None]
         if parts:
             scores = torch.cat([s.to(home) for s, _, _ in parts])
             idx = torch.cat([j.to(home) for _, j, _ in parts])
-            ok = torch.cat([o.to(home) for _, _, o in parts])
+            ok = None if exact else torch.cat([o.to(home) for _, _, o in parts])
         else:  # a rank past the end of the corpus
             scores = torch.zeros((0, k), device=home)
             idx = torch.zeros((0, k), dtype=torch.int64, device=home)
-            ok = torch.ones(0, dtype=torch.bool, device=home)
+            ok = None if exact else torch.ones(0, dtype=torch.bool, device=home)
         scores, idx, ok = _gather_rows(corpus, scores, idx, ok, k)
+    if exact:
+        return scores, idx
     with trace.span("topk.sync"):
         bad = (~ok).nonzero()[:, 0]
     if len(bad):

@@ -12,10 +12,12 @@ call before a timed one:
   block{256,1024}_chunked  the same block and the column-chunked top-k
                            over it: ops/topk.py::_topk_low_index_ties per
                            chunk of CORPUS_BLOCK (65,536) columns, merged;
-  exact_search_qb{256,1024}_64k  ops/topk.py::_exact, the production exact
-                           search (score blocks of query tile x CORPUS_BLOCK
-                           rows), over 65,536 queries with a query tile of
-                           256 or 1024 rows;
+  exact_search_qb{256,1024}_64k  ops/topk.py::_exact_plain, the blocked
+                           exact search (score blocks of query tile x
+                           CORPUS_BLOCK rows; on a card the port's exact
+                           search is the kernel of csrc/topk.cu), over
+                           65,536 queries with a query tile of 256 or 1024
+                           rows;
 
 over a random unit corpus of 10^6 x 256 drawn on the device from seed 0
 (the JAX tool draws its own with numpy; the legs do not depend on the
@@ -119,7 +121,7 @@ def main(argv=None) -> int:
     for qb in (256, 1024):
         def exact():
             with query_tile(qb), full_fp32():
-                return topk._exact(problem, K)
+                return topk._exact_plain(problem, K)
 
         name = f"exact_search_qb{qb}_{len(queries) // 1024}k"
         leg(out, f"{name}_warm", exact, device)

@@ -40,14 +40,17 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
     index.upload         the queries' copy to the card, and
     index.readback       the results' copy back
   ops/topk.py
-    topk.sync            the host waits on a device result (`nonzero`)
+    topk.sync            the host waits on a device result (`nonzero`):
+                         the certified methods and the plain exact path;
+                         the exact search on a card has none
   parallel/distributed.py
     collective           one collective, with its host copies under gloo
 
 Counters: `embed.frames_staged` and `embed.frames_useful` (frames of each
 staged batch, padding included, and the clips' own), `k1.launches`,
 `convblock.<entry>`, `conv_int8.<entry>` (kernel launches per entry
-point) and `topk.repaired_rows` (rows the certified searches repaired).
+point), `topk.launches` (launches of the exact search's two kernels, two a
+search) and `topk.repaired_rows` (rows the certified searches repaired).
 """
 
 from __future__ import annotations
