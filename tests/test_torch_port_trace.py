@@ -1,8 +1,8 @@
 """The port's spans and counters (utils/trace.py): nothing recorded without a
 profiler, the spans of the scan's batching stage and of the `--against`
 search with their parents and requests, the staged and useful frame
-counts, and the chrome traces of `trace.profile` and the scan CLI's
-`--profile`."""
+counts, the 3D window reduction's span and counts, and the chrome traces
+of `trace.profile` and the scan CLI's `--profile`."""
 
 import json
 import time
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_scan import _cap_torch_threads, ckpt, corpus, scanner  # noqa: F401
+from tests.test_torch_port_scan3d import checkpoints, corpus3d, scanner3d  # noqa: F401
 from video_fingerprint_tpu_torch.cli.scan import main
 from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
 from video_fingerprint_tpu_torch.utils import trace
@@ -127,6 +128,37 @@ def test_staged_and_useful_frame_counts(scanner):
     assert (counts["embed.frames_staged"], counts["embed.frames_useful"]) == (staged, useful)
     assert trace.counter("embed.frames_staged") - before["embed.frames_staged"] == staged
     assert trace.counter("embed.frames_useful") - before["embed.frames_useful"] == useful
+
+
+def test_window_reduction_span_and_counts(scanner3d, corpus3d):  # noqa: F811
+    """One 3D scan: a `scan.reduce_windows` span a video, and the counts of
+    the windows reduced and of the videos they gave, exactly, in the record
+    and in the process totals."""
+    names = ("scan.windows_reduced", "scan.videos_reduced")
+    windows = 3 * len(scanner3d.window_plan(80)) + 1  # three 80-frame videos, one of 12
+    assert windows == 10
+    before = {n: trace.counter(n) for n in names}
+    trace.clear()
+    with _profiled():
+        fingerprints = scanner3d.scan_directory(corpus3d, num_workers=2, batched=True)
+    assert len(fingerprints) == 4
+    record = trace.recorded()
+    assert [record.counts[n] for n in names] == [windows, 4]
+    assert [trace.counter(n) - before[n] for n in names] == [windows, 4]
+    spans = [s for s in record.spans if s.name == "scan.reduce_windows"]
+    assert len(spans) == 4 and all(s.parent is None for s in spans)
+
+
+def test_attention_scan_reduces_no_windows(scanner, corpus):  # noqa: F811
+    names = ("scan.windows_reduced", "scan.videos_reduced")
+    before = {n: trace.counter(n) for n in names}
+    trace.clear()
+    with _profiled():
+        assert scanner.scan_directory(corpus, num_workers=2, batched=True)
+    record = trace.recorded()
+    assert record.spans and not [s for s in record.spans if s.name.startswith("scan.")]
+    assert not set(names) & set(record.counts)
+    assert all(trace.counter(n) == before[n] for n in names)
 
 
 def test_against_spans_and_parents(scanner):

@@ -24,7 +24,8 @@ families:
     the next batch is on its way. Its spans (`embed.*`, `decode.queue_wait`)
     and its counts of staged and useful frames are utils/trace.py's;
   - a 3D video's windows reduce to one embedding: a single window's as it
-    is, several windows' mean renormalized (`reduce_windows`);
+    is, several windows' mean renormalized (`reduce_windows`, with its
+    span `scan.reduce_windows` and its counts of windows and videos);
   - an optional cache of an earlier scan (inference/scan_cache.py) skips
     every file whose size and md5 of the first MiB are unchanged;
   - duplicates are grouped from the full similarity matrix (up to 100
@@ -851,11 +852,16 @@ def reduce_windows(embeddings: Sequence[np.ndarray], num_windows: int) -> np.nda
     as the model gave it (already unit norm), else the mean over the windows
     that decoded, renormalized (fingerprint.py:300-318). The attention path
     averages its segments without renormalizing; both rules are the
-    reference's."""
-    if num_windows == 1:
-        return np.asarray(embeddings[0])
-    mean = np.mean(np.stack(embeddings), axis=0)
-    return mean / np.linalg.norm(mean)
+    reference's. Each call is one `scan.reduce_windows` span and counts
+    its windows (`scan.windows_reduced`) and its video
+    (`scan.videos_reduced`)."""
+    with trace.span("scan.reduce_windows"):
+        trace.count("scan.windows_reduced", len(embeddings))
+        trace.count("scan.videos_reduced")
+        if num_windows == 1:
+            return np.asarray(embeddings[0])
+        mean = np.mean(np.stack(embeddings), axis=0)
+        return mean / np.linalg.norm(mean)
 
 
 def _hash_variables(variables) -> str:

@@ -32,6 +32,9 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
     embed.readback_wait  the wait for an earlier batch's result (that
                          batch's request) and its hand-off
     decode.queue_wait    the batching stage waits on the decode threads
+    scan.reduce_windows  one 3D video's window embeddings reduced to its
+                         fingerprint (`reduce_windows`); the attention
+                         path has none
     against.call         one `find_duplicates_against` call, with
     against.prepare      its identity checks and stacked queries, and
     against.group        its grouping and exact-duplicate tagging
@@ -47,7 +50,9 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
     collective           one collective, with its host copies under gloo
 
 Counters: `embed.frames_staged` and `embed.frames_useful` (frames of each
-staged batch, padding included, and the clips' own), `k1.launches`,
+staged batch, padding included, and the clips' own),
+`scan.windows_reduced` and `scan.videos_reduced` (the 3D windows and the
+videos `reduce_windows` took in and gave out), `k1.launches`,
 `convblock.<entry>`, `conv_int8.<entry>` (kernel launches per entry
 point), `topk.launches` (launches of the exact search's two kernels, two a
 search) and `topk.repaired_rows` (rows the certified searches repaired).
