@@ -24,7 +24,9 @@ Phases, each of which raises (exit code 1) on any failure:
      fed ~200 seeded uint8 64x64 clips covering every bucket with planted
      byte-identical copies, duplicate search through the direct and the top-k
      path, all checked against the port's CPU path; the kernel's launch count
-     shows the scan went through it; videos/s at bucket 128; then the same
+     shows the scan went through it; videos/s at bucket 128 (every
+     batching-stage leg of phases 3, 6, 10 and 11 also gives its fill's
+     GB/s, its pooled fills and the fill pool's threads); then the same
      weights under max_frames = 1000 (a checkpoint's config may name any
      length), three clips of 600-1000 frames on the card against the CPU;
   4. the scan CLI on a synthetic mp4 corpus, on the card and on the CPU;
@@ -90,9 +92,9 @@ Phases, each of which raises (exit code 1) on any failure:
      each native path that built, and the attention scan on the card in
      each mode (--native_decode stages uint8, --native_preprocess float32)
      against the cv2 scan (cosine >= 0.999, equal duplicate groups), with
-     batching-stage videos/s per mode; where vfp_decode built, also
-     decode_scan against the cv2 path (mean |diff| < 3) and the 3D scan
-     with --native_decode against the cv2 3D scan;
+     the decode scan's and the batching stage's videos/s per mode; where
+     vfp_decode built, also decode_scan against the cv2 path (mean |diff| <
+     3) and the 3D scan with --native_decode against the cv2 3D scan;
  11. multi-device, every path on the one card (a device list that repeats
      cuda:0, or ranks that share it): the data-parallel scan of phase 3's
      clips over 4 shards and phase 6's 3D scan over 2, held against
@@ -555,6 +557,39 @@ def _scan_long(torch, workdir: Path, model_path: Path, rng):
             "attention_launches": launches, "card_vs_cpu_min_cos": cos}
 
 
+def _stage_rate(torch, scanner, items):
+    """The batching stage on `items` after one warm batch: videos/s by the
+    host clock; then one pass under a CPU profiler for the fill (read by
+    difference): its GB/s (the staged bytes over `embed.fill`'s self time),
+    the fills and those that ran on the pool (`embed.fill_pooled`), and the
+    pool's threads."""
+    from video_fingerprint_tpu_torch.inference.scanner import stage_pool_threads
+    from video_fingerprint_tpu_torch.utils import trace
+
+    scanner.embed_clips(items[:BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scanner.embed_clips(items)
+    torch.cuda.synchronize()
+    videos_per_s = len(items) / (time.perf_counter() - t0)
+
+    def mark():
+        record = trace.recorded()
+        return (trace.counter("embed.frames_staged"), trace.counter("embed.fill_pooled"),
+                sum(s.name == "embed.fill" for s in record.spans),
+                record.self_seconds.get("embed.fill", 0.0))
+
+    start = mark()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        scanner.embed_clips(items)
+        torch.cuda.synchronize()
+    frames, pooled, fills, fill_s = (b - a for a, b in zip(start, mark()))
+    frame_bytes = scanner.frame_size ** 2 * 3 * np.dtype(scanner.stage_dtype).itemsize
+    return {"videos_per_s": videos_per_s, "fill_gb_per_s": frames * frame_bytes / fill_s / 1e9,
+            "fill_s": fill_s, "fills": fills, "fill_pooled": pooled,
+            "pool_threads": stage_pool_threads()}
+
+
 def phase_scan(torch, workdir: Path):
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
     from video_fingerprint_tpu_torch.utils import trace
@@ -629,12 +664,7 @@ def phase_scan(torch, workdir: Path):
     # staging, copies, forward, readback) and the forward alone on the card
     clips128 = [(i, rng.integers(0, 256, (128, 64, 64, 3), dtype=np.uint8))
                 for i in range(4 * BATCH)]
-    scanner.embed_clips(clips128[:BATCH])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scanner.embed_clips(clips128)
-    torch.cuda.synchronize()
-    stage_vps = len(clips128) / (time.perf_counter() - t0)
+    stage = _stage_rate(torch, scanner, clips128)
     # the forward alone on the card, per bucket: total and spatial encoder
     forward = {}
     for T in BUCKETS:
@@ -660,7 +690,8 @@ def phase_scan(torch, workdir: Path):
           "attention_launches": launches, "warmup_s": warmup_s, "scan_s": scan_s,
           "threshold": threshold, "copy_min_sim": min(copy_sims),
           "other_max_sim": other_max, "groups": results, "card_vs_cpu_min_cos": cos,
-          "b128_stage_videos_per_s": stage_vps, "forward_b64": forward,
+          "b128_stage_videos_per_s": stage.pop("videos_per_s"), "b128_stage_fill": stage,
+          "forward_b64": forward,
           "max_frames_1000": long})
     return launches, model_path
 
@@ -976,12 +1007,7 @@ def phase_scan3d(torch, workdir: Path):
     # the batching stage and the forward alone at B = 64 on 128-frame windows
     full = [(i, rng.integers(0, 256, (CLIP_LENGTH, 64, 64, 3), dtype=np.uint8))
             for i in range(4 * BATCH)]
-    scanner.embed_clips(full[:BATCH])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scanner.embed_clips(full)
-    torch.cuda.synchronize()
-    stage_wps = len(full) / (time.perf_counter() - t0)
+    stage = _stage_rate(torch, scanner, full)
     frames = torch.from_numpy(np.stack([c for _, c in full[:BATCH]])).to(CARD)
     blocks_ms = []
     with torch.inference_mode(), full_fp32():
@@ -1001,7 +1027,8 @@ def phase_scan3d(torch, workdir: Path):
           "launches": launches, "warmup_s": warmup_s, "scan_s": scan_s,
           "threshold": threshold, "copy_min_sim": copy_min, "other_max_sim": other_max,
           "groups": groups, "card_vs_cpu_min_cos": cos,
-          "b64_stage_windows_per_s": stage_wps, "forward_b64_ms": forward_ms,
+          "b64_stage_windows_per_s": stage.pop("videos_per_s"), "b64_stage_fill": stage,
+          "forward_b64_ms": forward_ms,
           "forward_windows_per_s": BATCH / forward_ms * 1e3,
           "block_ms": blocks_ms, "forward_profile": forward_profile, "gflop_per_window": gflop,
           "tflop_per_s": BATCH * gflop / forward_ms, "cli": cli})
@@ -2081,18 +2108,6 @@ def _decode_rate(scanner, paths):
     return len(paths) / seconds, clips
 
 
-def _stage_rate(torch, scanner, clips):
-    """Batching-stage videos/s on decoded clips: 256 clips (the corpus's
-    repeated), B = 64, after one warm batch."""
-    items = [(i, clips[i % len(clips)]) for i in range(4 * BATCH)]
-    scanner.embed_clips(items[:BATCH])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scanner.embed_clips(items)
-    torch.cuda.synchronize()
-    return len(items) / (time.perf_counter() - t0)
-
-
 def _require_pairs(groups, paths, what):
     """Each planted copy shares a group with its original."""
     for i in range(2):
@@ -2178,11 +2193,16 @@ def phase_native(torch, workdir: Path, model_path: Path, model3d_path: Path, smi
         scanner, _ = _scanner(torch, model_path, **flags)
         require(all(getattr(scanner, f) for f in flags), f"{mode}: flag not taken")
         decode_vps, clips = _decode_rate(scanner, paths)
-        stage_vps = _stage_rate(torch, scanner, [clips[p] for p in paths])
+        decoded = [clips[p] for p in paths]  # the corpus's clips, repeated
+        stage = _stage_rate(torch, scanner,
+                            [(i, decoded[i % len(decoded)]) for i in range(4 * BATCH)])
+        t1 = time.perf_counter()
         fps, groups, launches = _scan_and_group(torch, scanner, videos)
+        scan_vps = len(fps) / (time.perf_counter() - t1)
         require(len(fps) == len(paths), f"{mode}: {len(fps)} of {len(paths)} videos")
         require(launches > 0, f"{mode}: the scan did not launch K1")
-        row = {"decode_videos_per_s": decode_vps, "stage_videos_per_s": stage_vps,
+        row = {"decode_videos_per_s": decode_vps, "scan_videos_per_s": scan_vps,
+               "stage_videos_per_s": stage.pop("videos_per_s"), "stage_fill": stage,
                "stage_dtype": np.dtype(scanner.stage_dtype).name, "groups": len(groups),
                "attention_launches": launches}
         _require_pairs(groups, paths, mode)
@@ -2293,15 +2313,12 @@ def _dp_scan(torch, workdir: Path, smi: str):
                                                                 topk_threshold))
             require(groups[route] == sorted(sorted(p) for p in pairs),
                      f"{shards} shards {route}: groups {groups[route]} != planted copies")
-        scanner.embed_clips(clips128[:BATCH])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scanner.embed_clips(clips128)
-        torch.cuda.synchronize()
+        stage = _stage_rate(torch, scanner, clips128)
         rows[shards] = {"batch": scanner.batch_size, "attention_launches": launches["attention"],
                         "forwards": forwards, "min_cos_vs_one_card": cos,
                         "groups": {r: len(g) for r, g in groups.items()},
-                        "b128_stage_videos_per_s": len(clips128) / (time.perf_counter() - t0)}
+                        "b128_stage_videos_per_s": stage.pop("videos_per_s"),
+                        "b128_stage_fill": stage}
         emit({"phase": "multigpu", "check": "dp_scan", "shards_on_one_card": shards,
               "smi": smi, **rows[shards]})
         del scanner

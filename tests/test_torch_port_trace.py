@@ -1,10 +1,11 @@
 """The port's spans and counters (utils/trace.py): nothing recorded without a
 profiler, the spans of the scan's batching stage and of the `--against`
-search with their parents and requests, the staged and useful frame
-counts, the 3D window reduction's span and counts, and the chrome traces
-of `trace.profile` and the scan CLI's `--profile`."""
+search with their parents and requests (a pooled fill's included), the
+staged and useful frame counts, the 3D window reduction's span and counts,
+and the chrome traces of `trace.profile` and the scan CLI's `--profile`."""
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 from tests.test_torch_port_scan import _cap_torch_threads, ckpt, corpus, scanner  # noqa: F401
 from tests.test_torch_port_scan3d import checkpoints, corpus3d, scanner3d  # noqa: F401
 from video_fingerprint_tpu_torch.cli.scan import main
+from video_fingerprint_tpu_torch.inference import scanner as scanner_mod
 from video_fingerprint_tpu_torch.inference.index import FingerprintIndex
 from video_fingerprint_tpu_torch.utils import trace
 
@@ -84,6 +86,25 @@ def test_embed_clips_spans_and_chrome_trace(scanner, tmp_path):
     result runs inside the next batch's span with the earlier batch's
     request, and the last one after the final batch. The chrome trace holds
     the same spans as nested vfp.* ranges."""
+    _check_embed_clips_spans(scanner, tmp_path)
+
+
+def test_pooled_fill_keeps_its_spans_on_the_calling_thread(scanner, tmp_path, monkeypatch):
+    """With every batch over the pooling threshold, each batch still has one
+    `embed.fill` span and one vfp.embed.fill range, and every span and vfp.*
+    range is the calling thread's: the pool's workers record none."""
+    monkeypatch.setattr(scanner_mod, "STAGE_POOL_MIN_BYTES", 0)
+    before = trace.counter("embed.fill_pooled")
+    spans, events = _check_embed_clips_spans(scanner, tmp_path)
+    assert trace.counter("embed.fill_pooled") - before == 3
+    assert trace.recorded().counts["embed.fill_pooled"] == 3
+    assert {s.thread for s in spans} == {threading.get_ident()}
+    assert len({ev["tid"] for ev in events if ev["name"].startswith(trace.PREFIX)}) == 1
+
+
+def _check_embed_clips_spans(scanner, tmp_path):
+    """The embed_clips span checks of the two tests above: (spans, chrome
+    trace events)."""
     trace.clear()
     with trace.profile(tmp_path, CPU):
         out = scanner.embed_clips(_clips())
@@ -113,6 +134,7 @@ def test_embed_clips_spans_and_chrome_trace(scanner, tmp_path):
     assert len(ranges["vfp.embed.batch"]) == 3 and len(ranges["vfp.embed.fill"]) == 3
     for lo, hi in ranges["vfp.embed.fill"]:
         assert any(b0 <= lo and hi <= b1 for b0, b1 in ranges["vfp.embed.batch"])
+    return spans, [ev for ev in events if ev.get("ph") == "X"]
 
 
 def test_staged_and_useful_frame_counts(scanner):

@@ -21,8 +21,10 @@ families:
     buckets are multiples of its frame stride, where zero padding is the
     model's own. Staging buffers are pinned, the copies to and from the
     card are asynchronous, and one batch's result is read back only after
-    the next batch is on its way. Its spans (`embed.*`, `decode.queue_wait`)
-    and its counts of staged and useful frames are utils/trace.py's;
+    the next batch is on its way. A batch of STAGE_POOL_MIN_BYTES or more
+    is padded into its slot by a pool of host threads, a row a task. Its
+    spans (`embed.*`, `decode.queue_wait`), its counts of staged and useful
+    frames and of pooled fills are utils/trace.py's;
   - a 3D video's windows reduce to one embedding: a single window's as it
     is, several windows' mean renormalized (`reduce_windows`, with its
     span `scan.reduce_windows` and its counts of windows and videos);
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import os
 import queue
 import threading
 import time
@@ -71,6 +74,47 @@ DEFAULT_EXTENSIONS = [".mp4", ".avi", ".mov", ".mkv", ".webm", ".flv"]
 SCAN_BUCKETS = (32, 64, 128, 256, 512)
 MIN_FRAMES = 10  # reference minimum (fingerprint.py:238-240)
 MODEL_TYPES = ("attention", "3d", "cnn3d")
+# The fill of a staging slot: a batch of at least STAGE_POOL_MIN_BYTES is
+# padded into its slot by up to STAGE_POOL_THREADS host threads, a row a
+# task (numpy's copies release the GIL); a smaller one by the calling thread.
+# On the H100's 8-core host the fill's GB/s stops rising at 8 threads, and a
+# 25 MB slot filled serially beat the pool while 50 MB and larger gained
+# (PERF.md §5).
+STAGE_POOL_THREADS = 8
+STAGE_POOL_MIN_BYTES = 32 << 20
+
+_fill_pool: Optional[ThreadPoolExecutor] = None
+_fill_pool_lock = threading.Lock()
+
+
+def stage_pool_threads() -> int:
+    """The fill pool's threads: the cores this process may run on, at most
+    STAGE_POOL_THREADS."""
+    return min(STAGE_POOL_THREADS, len(os.sched_getaffinity(0)))
+
+
+def _stage_pool() -> ThreadPoolExecutor:
+    """The process's fill pool, made at its first use; every staging shares
+    it (the data-parallel shards fill in turn)."""
+    global _fill_pool
+    with _fill_pool_lock:
+        if _fill_pool is None:
+            _fill_pool = ThreadPoolExecutor(max_workers=stage_pool_threads(),
+                                            thread_name_prefix="vfp-stage")
+        return _fill_pool
+
+
+def _fill_row(frames: np.ndarray, mask: np.ndarray, clips: Sequence[np.ndarray],
+              i: int) -> None:
+    """Row i of a staging slot: clip i's frames, zeros to the bucket's end and
+    the mask of its frames; past the clips, zeros and an all-False mask. It
+    opens no span: a worker thread's would not be recorded."""
+    t = clips[i].shape[0] if i < len(clips) else 0
+    if t:
+        frames[i, :t] = clips[i]
+    frames[i, t:] = 0
+    mask[i, :t] = True
+    mask[i, t:] = False
 
 
 class _Readback:
@@ -171,14 +215,15 @@ class _Staging:
             with trace.span("embed.slot_wait"):
                 copied.synchronize()  # the slot's previous copy has left it
         f, m = frames.numpy(), mask.numpy()
+        rows = range(self.batch_size)
         with trace.span("embed.fill"):
-            m[:] = False
-            for i, clip in enumerate(clips):
-                t = clip.shape[0]
-                f[i, :t] = clip
-                f[i, t:] = 0
-                m[i, :t] = True
-            f[len(clips):] = 0
+            if f.nbytes >= STAGE_POOL_MIN_BYTES:
+                # list() waits for every row and re-raises a worker's exception
+                list(_stage_pool().map(lambda i: _fill_row(f, m, clips, i), rows))
+                trace.count("embed.fill_pooled")
+            else:
+                for i in rows:
+                    _fill_row(f, m, clips, i)
         trace.count("embed.frames_staged", self.batch_size * bucket)
         trace.count("embed.frames_useful", sum(clip.shape[0] for clip in clips))
         frames_dev = frames.to(self.device, non_blocking=True)

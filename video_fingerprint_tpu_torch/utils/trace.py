@@ -27,7 +27,9 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
   inference/scanner.py
     embed.batch          one batch: its staging, forward and dispatch
     embed.slot_wait      the host waits for a pinned slot's last copy
-    embed.fill           clips padded and copied into the pinned slot
+    embed.fill           clips padded and copied into the pinned slot (by
+                         the fill pool's threads for a large batch, the
+                         span then being the calling thread's wait)
     embed.forward        the forward and the readback's enqueue
     embed.readback_wait  the wait for an earlier batch's result (that
                          batch's request) and its hand-off
@@ -50,7 +52,8 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
     collective           one collective, with its host copies under gloo
 
 Counters: `embed.frames_staged` and `embed.frames_useful` (frames of each
-staged batch, padding included, and the clips' own),
+staged batch, padding included, and the clips' own), `embed.fill_pooled`
+(staged batches whose fill ran on the fill pool, one a batch and shard),
 `scan.windows_reduced` and `scan.videos_reduced` (the 3D windows and the
 videos `reduce_windows` took in and gave out), `k1.launches`,
 `convblock.<entry>`, `conv_int8.<entry>` (kernel launches per entry
