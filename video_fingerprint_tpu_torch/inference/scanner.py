@@ -6,15 +6,15 @@ families:
   - the checkpoint (`.ckpt` or reference `.pth`) loads, BatchNorm folds into
     the convs (on by default), and the model is rebuilt from the embedded
     config;
-  - a decode producer turns paths into uint8 clips on host threads. The
-    attention model takes one subsampled clip per video; the 3D model takes
-    windows of up to `clip_length` frames (`window_plan`: one window for a
-    short video, 3-5 evenly strided ones for a longer one). With
-    `native_decode` the native libav worker (utils/native_decode.py)
-    decodes, scales and crops in one pass; with `native_preprocess` (and no
-    native decode) cv2 decodes and the native thread pool (utils/native.py)
-    resizes, crops and normalizes the attention clips to float32, which are
-    then staged as float32;
+  - a decode producer (`_decode_ahead`, bounded) turns paths into uint8
+    clips on host threads. The attention model takes one subsampled clip
+    per video; the 3D model takes windows of up to `clip_length` frames
+    (`window_plan`: one window for a short video, 3-5 evenly strided ones
+    for a longer one). With `native_decode` the native libav worker
+    (utils/native_decode.py) decodes, scales and crops in one pass; with
+    `native_preprocess` (and no native decode) cv2 decodes and the native
+    thread pool (utils/native.py) resizes, crops and normalizes the
+    attention clips to float32, which are then staged as float32;
   - the batching stage (`embed_clips`) pads each clip to a length bucket
     and forwards fixed-shape batches: the attention model masks the padding
     (partial batches get rows whose mask is all False); the 3D model's
@@ -30,9 +30,9 @@ families:
     span `scan.reduce_windows` and its counts of windows and videos);
   - an optional cache of an earlier scan (inference/scan_cache.py) skips
     every file whose size and md5 of the first MiB are unchanged;
-  - duplicates are grouped from the full similarity matrix (up to 100
-    videos) or from exact top-k candidates, or searched against a saved
-    corpus (`find_duplicates_against`).
+  - duplicates are grouped (inference/dedup.py) from the full similarity
+    matrix (up to 100 videos) or from exact top-k candidates, or searched
+    against a saved corpus (`find_duplicates_against`).
 
 Entry points run on the card (device="cuda") unless the caller asks for the
 CPU. In float32 mode every forward and similarity runs with TF32 off for
@@ -45,11 +45,12 @@ from __future__ import annotations
 import copy
 import hashlib
 import os
-import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import closing, contextmanager
+from itertools import islice
 from pathlib import Path
 from typing import Any, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -57,11 +58,12 @@ import numpy as np
 import torch
 
 from video_fingerprint_tpu_torch.data import decode, preprocess
+from video_fingerprint_tpu_torch.inference import dedup
 from video_fingerprint_tpu_torch.inference.index import identity_mismatch
 from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
-from video_fingerprint_tpu_torch.ops.topk import sharded_topk_cosine, topk_cosine
-from video_fingerprint_tpu_torch.parallel.distributed import world_size
+from video_fingerprint_tpu_torch.ops.topk import (shard_search, sharded_topk_cosine,
+                                                 topk_cosine)
 from video_fingerprint_tpu_torch.parallel.mesh import as_devices, pad_to_multiple
 from video_fingerprint_tpu_torch.training.checkpoint import load_any
 from video_fingerprint_tpu_torch.utils import native, trace
@@ -102,6 +104,28 @@ def _stage_pool() -> ThreadPoolExecutor:
             _fill_pool = ThreadPoolExecutor(max_workers=stage_pool_threads(),
                                             thread_name_prefix="vfp-stage")
         return _fill_pool
+
+
+def _decode_ahead(jobs: Iterable, load, num_workers: int) -> Iterator:
+    """(job, load(job)) for each job, in job order, from a pool of
+    num_workers threads with at most 4 * num_workers jobs submitted and not
+    yet consumed (the one the consumer holds included). Each wait is a
+    `decode.queue_wait` span; closing cancels the jobs not yet started."""
+    workers = max(1, num_workers)
+    jobs, ahead = iter(jobs), deque()
+    pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="vfp-decode")
+    try:
+        while True:
+            ahead.extend((job, pool.submit(load, job))
+                         for job in islice(jobs, 4 * workers - len(ahead)))
+            if not ahead:
+                return
+            job, future = ahead.popleft()
+            with trace.span("decode.queue_wait"):
+                result = future.result()
+            yield job, result
+    finally:
+        pool.shutdown(cancel_futures=True)
 
 
 def _fill_row(frames: np.ndarray, mask: np.ndarray, clips: Sequence[np.ndarray],
@@ -256,8 +280,8 @@ class FingerprintScanner:
     embeddings are joined on the host. With one device on the platform it
     runs there and says so. The single-video and sequential paths stay on
     `device`. `devices` (the given list, else the platform's) is also what
-    the top-k duplicate search shards over once it has at least 8 videos
-    per device (JAX scanner.py:775-780). Under a process group of several
+    the top-k duplicate search shards over where ops/topk.py::shard_search
+    says so (at least 8 videos a shard). Under a process group of several
     ranks the default list is the rank's own `device`, and the search's
     shards are every rank's devices: each rank passes the same embeddings
     and gets the same duplicate groups, so every rank must run the search
@@ -575,19 +599,11 @@ class FingerprintScanner:
 
     def _scan_batched(self, video_paths: List[Path], num_workers: int):
         """Decode producer -> batching stage -> per-file metadata."""
-        failed = 0
-
-        def decoded():
-            nonlocal failed
-            for path, clip in self.decode_clips(video_paths, num_workers):
-                if clip is None:
-                    failed += 1
-                else:
-                    yield path, clip
-
-        embeddings = self.embed_clips(decoded())
+        embeddings = self.embed_clips((path, clip) for path, clip
+                                      in self.decode_clips(video_paths, num_workers)
+                                      if clip is not None)
         fingerprints = {str(p): self._metadata(p, e) for p, e in embeddings.items()}
-        return fingerprints, failed
+        return fingerprints, len(video_paths) - len(embeddings)
 
     def _scan_batched_3d(self, video_paths: List[Path], num_workers: int):
         """Window planner -> decode producer -> batching stage -> one
@@ -597,15 +613,13 @@ class FingerprintScanner:
         plans = self.plan_windows(video_paths, num_workers)
         embeddings = self.embed_clips(self.decode_windows(plans, num_workers))
         fingerprints: Dict[str, dict] = {}
-        failed = 0
         for path, windows in plans:
             embs = [embeddings[(path, i)] for i in range(len(windows or ()))
                     if (path, i) in embeddings]
-            if not embs:
-                failed += 1
-                continue
-            fingerprints[str(path)] = self._metadata(path, reduce_windows(embs, len(windows)))
-        return fingerprints, failed
+            if embs:
+                emb = reduce_windows(embs, len(windows))
+                fingerprints[str(path)] = self._metadata(path, emb)
+        return fingerprints, len(plans) - len(fingerprints)
 
     def plan_windows(self, video_paths: Sequence[Path], num_workers: int
                      ) -> List[Tuple[Path, Optional[List[Tuple[int, int]]]]]:
@@ -624,13 +638,13 @@ class FingerprintScanner:
     def decode_windows(self, plans, num_workers: int
                        ) -> Iterator[Tuple[Tuple[Path, int], np.ndarray]]:
         """Decode producer of the 3D scan: ((path, window index), (T, H, W, 3)
-        uint8 clip) in plan order, decoded by a pool of host threads. A
-        window that fails to decode is left out."""
-        jobs = [(path, i, start, length) for path, windows in plans if windows
+        uint8 clip) in plan order, decoded by `_decode_ahead`. A window that
+        fails to decode is left out."""
+        jobs = [((path, i), start, length) for path, windows in plans if windows
                 for i, (start, length) in enumerate(windows)]
 
         def load(job):
-            path, _, start, length = job
+            (path, _), start, length = job
             try:
                 if self.native_decode:
                     return native_decode_lib.decode_clip(path, start, length,
@@ -639,55 +653,31 @@ class FingerprintScanner:
             except Exception:  # one unreadable window must not end the scan
                 return None
 
-        with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
-            clips = pool.map(load, jobs)
-            for path, i, _, _ in jobs:
-                with trace.span("decode.queue_wait"):
-                    clip = next(clips)
-                if clip is not None:
-                    yield (path, i), clip
+        with closing(_decode_ahead(jobs, load, num_workers)) as clips:
+            yield from ((key, clip) for (key, _, _), clip in clips if clip is not None)
 
     def decode_clips(self, video_paths: Sequence[Path], num_workers: int
                      ) -> Iterator[Tuple[Path, Optional[np.ndarray]]]:
         """Decode producer: paths -> (path, (T, H, W, 3) clip of the staging
-        dtype), in path order, decoded by a pool of host threads. A file that
-        fails to decode or has fewer than 10 frames gives (path, None)."""
-        work: "queue.Queue" = queue.Queue(maxsize=max(1, num_workers) * 4)
-        done = object()
-
+        dtype), in path order, decoded by `_decode_ahead`. A file that fails
+        to decode or has fewer than 10 frames gives (path, None)."""
         def load(path):
             try:
                 if self.native_decode:  # fused demux->decode->scale->crop
                     clip = native_decode_lib.decode_scan(path, self.max_frames,
                                                          self.frame_size)
-                    if clip is None or clip.shape[0] < MIN_FRAMES:
-                        return path, None
-                    return path, clip
+                    return None if clip is None or clip.shape[0] < MIN_FRAMES else clip
                 frames = decode.decode_subsampled(path, self.max_frames)
                 if len(frames) < MIN_FRAMES:
-                    return path, None
+                    return None
                 if self.native_preprocess:
-                    return path, native.preprocess_frames(np.stack(frames), self.frame_size)
-                return path, preprocess.preprocess_frames(
-                    frames, self.frame_size, normalize=False)
+                    return native.preprocess_frames(np.stack(frames), self.frame_size)
+                return preprocess.preprocess_frames(frames, self.frame_size,
+                                                    normalize=False)
             except Exception:  # one unreadable file must not end the scan
-                return path, None
+                return None
 
-        def producer():
-            try:
-                with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
-                    for item in pool.map(load, video_paths):
-                        work.put(item)
-            finally:
-                work.put(done)
-
-        threading.Thread(target=producer, daemon=True).start()
-        while True:
-            with trace.span("decode.queue_wait"):
-                item = work.get()
-            if item is done:
-                return
-            yield item
+        yield from _decode_ahead(video_paths, load, num_workers)
 
     def embed_clips(self, clips: Iterable[Tuple[Hashable, np.ndarray]]
                     ) -> Dict[Hashable, np.ndarray]:
@@ -770,19 +760,10 @@ class FingerprintScanner:
         embeddings = np.stack(
             [np.asarray(fingerprints[p]["embedding"], dtype=np.float32) for p in paths]
         )
-        if len(embeddings) > topk_threshold:
-            groups = self._find_duplicates_topk(
-                embeddings, paths, fingerprints, similarity_threshold)
-        else:
-            groups = self._find_duplicates_direct(
-                embeddings, paths, fingerprints, similarity_threshold)
-
-        # exact-duplicate tagging via md5 (fingerprint.py:475-479)
-        for group in groups:
-            hashes = [item["file_hash"] for item in group]
-            for item in group:
-                item["exact_duplicate"] = hashes.count(item["file_hash"]) > 1
-        return groups
+        route = (self._find_duplicates_topk if len(embeddings) > topk_threshold
+                 else self._find_duplicates_direct)
+        return dedup.tag_exact_duplicates(
+            route(embeddings, paths, fingerprints, similarity_threshold))
 
     def _similarities_full(self, embeddings: np.ndarray) -> np.ndarray:
         e = torch.from_numpy(embeddings).to(self.device)
@@ -791,52 +772,21 @@ class FingerprintScanner:
 
     def _find_duplicates_direct(self, embeddings, paths, fingerprints, threshold):
         """All-pairs matrix + greedy grouping (fingerprint.py:482-513)."""
-        sims = self._similarities_full(embeddings)
-        processed = set()
-        groups = []
-        for i in range(len(embeddings)):
-            if i in processed:
-                continue
-            similar = np.where(sims[i] >= threshold)[0]
-            if len(similar) > 1:
-                group = []
-                for idx in similar:
-                    if idx not in processed:
-                        processed.add(int(idx))
-                        item = dict(fingerprints[paths[idx]])
-                        item["similarity"] = float(sims[i, idx])
-                        group.append(item)
-                if len(group) > 1:
-                    groups.append(group)
-        return groups
+        return dedup.library_groups(self._similarities_full(embeddings), None, threshold,
+                                    paths, fingerprints)
 
     def _find_duplicates_topk(self, embeddings, paths, fingerprints, threshold):
         """k-NN candidates from exact top-k + the greedy grouping the
         reference applies to its FAISS results (fingerprint.py:515-548)."""
-        n, d = len(embeddings), len(self.devices) * world_size()
-        if d > 1 and n >= 8 * d:  # corpus-sharded ring (JAX scanner.py:775-780)
+        n = len(embeddings)
+        if shard_search(n, self.devices):  # the corpus-sharded ring
             sims, idx = sharded_topk_cosine(embeddings, min(20, n), devices=self.devices,
                                             exact_above=threshold)
         else:
             sims, idx = topk_cosine(torch.from_numpy(embeddings).to(self.device), min(20, n),
                                     exact_above=threshold)
-        sims, idx = sims.cpu().numpy(), idx.cpu().numpy()
-
-        processed = set()
-        groups = []
-        for i in range(n):
-            if i in processed:
-                continue
-            group = []
-            for sim, j in zip(sims[i], idx[i]):
-                if sim >= threshold and int(j) not in processed:
-                    processed.add(int(j))
-                    item = dict(fingerprints[paths[int(j)]])
-                    item["similarity"] = float(sim)
-                    group.append(item)
-            if len(group) > 1:
-                groups.append(group)
-        return groups
+        return dedup.library_groups(sims.cpu().numpy(), idx.cpu().numpy(), threshold,
+                                    paths, fingerprints)
 
     def find_duplicates_against(
         self,
@@ -867,29 +817,8 @@ class FingerprintScanner:
                                     for p in paths])
             sims, idx = index.search(queries, k=k, exact_above=similarity_threshold)
             with trace.span("against.group"):
-                groups: List[List[dict]] = []
-                for qi, path in enumerate(paths):
-                    anchor = dict(fingerprints[path])
-                    anchor["similarity"] = 1.0
-                    group = [anchor]
-                    for sim, j in zip(sims[qi], idx[qi]):
-                        if sim < similarity_threshold:
-                            continue
-                        meta = index.meta(int(j))
-                        if meta.get("path") == path:
-                            continue
-                        item = dict(meta)
-                        item["similarity"] = float(sim)
-                        group.append(item)
-                    if len(group) > 1:
-                        groups.append(group)
-
-                for group in groups:
-                    hashes = [item.get("file_hash") for item in group]
-                    for item in group:
-                        h = item.get("file_hash")
-                        item["exact_duplicate"] = h is not None and hashes.count(h) > 1
-                return groups
+                return dedup.against_groups(sims, idx, similarity_threshold, paths,
+                                            fingerprints, index.meta)
 
 
 def reduce_windows(embeddings: Sequence[np.ndarray], num_windows: int) -> np.ndarray:

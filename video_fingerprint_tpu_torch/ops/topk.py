@@ -79,6 +79,7 @@ from video_fingerprint_tpu_torch.parallel.distributed import (
     all_gather_stack,
     all_ranks_true,
     ring_shift,
+    world_size,
 )
 from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
@@ -533,6 +534,14 @@ def topk_cosine(embeddings: torch.Tensor, k: int, exact_above: Optional[float] =
 # result, the counterpart of JAX `_replicate_for_host` (:827-849). Results
 # come back on devices[0], ordered by (score desc, index asc) as the
 # single-device search orders them.
+
+
+def shard_search(n: int, devices) -> bool:
+    """Whether a search over n corpus rows runs sharded: over more than one
+    shard (the devices times the process group's ranks, if any) with at
+    least 8 rows a shard (JAX scanner.py:775-780, the JAX index's rule)."""
+    shards = len(devices) * world_size()
+    return shards > 1 and n >= 8 * shards
 
 
 class ShardedCorpus:
