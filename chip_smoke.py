@@ -29,6 +29,16 @@ Phases, each of which raises (exit code 1) on any failure:
      GB/s, its pooled fills and the fill pool's threads); then the same
      weights under max_frames = 1000 (a checkpoint's config may name any
      length), three clips of 600-1000 frames on the card against the CPU;
+     the same clips in a bf16 scan (the benchmark's precision), whose frame
+     stem is K6 (csrc/stem.cu, one launch a forward; the f32 scan launches
+     none), against the f32 scan, and its frame features against the bf16
+     model's unfused path; K6 against its plain version at 64 videos x
+     every bucket length, a frame count that leaves the persistent grid's
+     last round ragged, all-0 and all-255 frames, a batch 5 frames in and
+     the other frame shapes it takes (channels 0-2 made the identity of
+     the centre tap, so the normalised input is read bit for bit), and its
+     device time at 64 x 500 frames beside the byte bound, the plain
+     version, cuDNN's conv + bias + ReLU and the whole unfused chain;
   4. the scan CLI on a synthetic mp4 corpus, on the card and on the CPU;
   5. the conv-block probe's kernel (csrc/conv3x3s2.cu, entry points
      conv_parity and conv_strided, the 3x3 stride-2 64->128 conv of the
@@ -590,7 +600,189 @@ def _stage_rate(torch, scanner, items):
             "pool_threads": stage_pool_threads()}
 
 
-def phase_scan(torch, workdir: Path):
+STEM_FRAME_BYTES = 64 * 64 * 3 + 32 * 32 * 32 * 2  # uint8 in, conv1's bf16 input out
+STEM_SCAN_COS = 0.999  # the bf16 scan (K6) against the f32 scan, per video
+
+
+def stem_bound_ms(n: int):
+    """Least time for K6 on n 64x64 frames: the frames read once and conv0's
+    bf16 output written once at HBM rate, vs 2 * 32 * 75 * 1,024 operations
+    a frame at the bf16 peak."""
+    t_bytes = n * STEM_FRAME_BYTES / PEAK_BYTES_PER_S * 1e3
+    t_ops = n * 2 * 32 * 75 * 1024 / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _stem_frames(torch, n: int, h: int = 64, w: int = 64, fill=None, seed: int = SEED):
+    """(n, h, w, 3) uint8 frames on the card: seeded, starting with every byte
+    value, or all `fill`."""
+    if fill is not None:
+        return torch.full((n, h, w, 3), fill, dtype=torch.uint8, device=CARD)
+    g = torch.Generator(device=CARD).manual_seed(seed + n)
+    frames = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=CARD, generator=g)
+    frames.view(-1)[:256] = torch.arange(256, dtype=torch.uint8, device=CARD)
+    return frames
+
+
+def _stem_weights(torch, conv0):
+    """conv0's weight and bias in bf16, channels 0-2 made the identity of the
+    centre tap's input channels 0-2 (weight 1, bias 0): K6's output there is
+    its normalised input at the even pixels, which the check reads bit for
+    bit."""
+    w = conv0.weight.detach().to(torch.bfloat16).contiguous().clone()
+    b = conv0.bias.detach().to(torch.bfloat16).clone()
+    w[:3] = 0
+    for c in range(3):
+        w[c, c, 2, 2] = 1
+    b[:3] = 0
+    return w, b
+
+
+def _check_stem(torch, frames, w, b, what: str) -> dict:
+    """One K6 launch (its counters move by one launch and N frames); channels
+    0-2 the model's own uint8 -> bf16 / 255 bit for bit; every channel
+    within one bf16 ulp of the plain version (f32, TF32 off)."""
+    from video_fingerprint_tpu_torch.ops import stem
+    from video_fingerprint_tpu_torch.ops.convblock import ONE_ULP, compare
+    from video_fingerprint_tpu_torch.utils import trace
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+
+    names = ("stem.launches", "stem.frames", "stem.blocks")
+    before = [trace.counter(k) for k in names]
+    out = stem.stem_conv(frames, w, b)
+    torch.cuda.synchronize()
+    launches, n, blocks = (trace.counter(k) - v for k, v in zip(names, before))
+    require((launches, n) == (1, frames.shape[0]) and 1 <= blocks <= n,
+            f"K6 {what}: counters moved by {(launches, n, blocks)}")
+    x = frames.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0  # input_from_frames' ops
+    require(torch.equal(out[..., :3].view(torch.int16),
+                        x[:, :, ::2, ::2].permute(0, 2, 3, 1).view(torch.int16)),
+            f"K6 {what}: the normalised input is not the model's bit for bit")
+    del x
+    with full_fp32():
+        plain = stem.stem_conv_plain(frames, w, b)
+    err, ok = compare(out, plain, ONE_ULP)
+    require(ok and bool(torch.isfinite(out).all()), f"K6 {what}: vs plain max abs {err}")
+    row = {"blocks": blocks, "max_abs_err": err,
+           "equal_share": float((out == plain).float().mean()),
+           "nonzero_share": float((out[..., 3:] > 0).float().mean())}
+    emit({"phase": "scan", "check": "k6", "case": what, "frames": frames.shape[0],
+          "shape": list(frames.shape[1:3]), **row})
+    return row
+
+
+def _host_us(torch, fn, calls: int = 200) -> float:
+    """Host time a call of fn, in microseconds: `calls` calls issued back to
+    back with no synchronisation between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _k6(torch, scanner, smi: str) -> dict:
+    """K6 (csrc/stem.cu) against its plain version: 64 videos x every bucket
+    length, a frame count that leaves the persistent grid's last round
+    ragged, all-0 and all-255 frames, a batch starting 5 frames in, and
+    the other frame shapes it takes; then at 64 x 500 frames its device time
+    (CUDA-graph replay) beside the byte bound, the plain version, cuDNN's
+    conv + bias + ReLU on the bf16 input (`library_ms`) and the whole
+    unfused chain from the uint8 frames (`unfused_ms`), with the scan
+    model's own weights; and the host's time a call through the wrapper
+    (`host_us`) beside the unfused chain's (`unfused_host_us`), at 64 x 32
+    frames."""
+    import copy
+
+    from video_fingerprint_tpu_torch.ops import stem
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+
+    conv0 = scanner.model.spatial_encoder.encoder[0]
+    w, b = _stem_weights(torch, conv0)
+    checks = {}
+    for T in BUCKETS:
+        checks[f"b64x{T}"] = _check_stem(torch, _stem_frames(torch, BATCH * T), w, b,
+                                         f"64 x {T}")
+    grid = max(c["blocks"] for c in checks.values())  # the launches' own persistent grid
+    per_sm = grid / torch.cuda.get_device_properties(0).multi_processor_count
+    ragged = 3 * grid + 5
+    checks["ragged"] = _check_stem(torch, _stem_frames(torch, ragged), w, b,
+                                   f"{ragged} frames on a grid of {grid}")
+    for fill in (0, 255):
+        checks[f"all_{fill}"] = _check_stem(torch, _stem_frames(torch, BATCH * 32, fill=fill),
+                                            w, b, f"all {fill}")
+    batch = _stem_frames(torch, BATCH * 32 + 5)
+    checks["offset"] = _check_stem(torch, batch[5:], w, b, "a batch 5 frames in")
+    for h, wd in ((37, 48), (96, 96), (1, 16)):
+        checks[f"{h}x{wd}"] = _check_stem(torch, _stem_frames(torch, 257, h, wd), w, b,
+                                          f"{h} x {wd} frames")
+    del batch
+
+    n = BATCH * BUCKETS[-1]
+    frames = _stem_frames(torch, n)
+    layer = copy.deepcopy(scanner.model.spatial_encoder.encoder[0:3]).to(torch.bfloat16)
+    wt, bt = layer[0].weight.detach(), layer[0].bias.detach()
+    with torch.inference_mode():
+        x = frames.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+        times = {"ms": graph_ms(lambda: stem.stem_conv(frames, wt, bt)),
+                 "library_ms": graph_ms(lambda: layer(x)),
+                 "unfused_ms": graph_ms(
+                     lambda: layer(frames.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0))}
+        with full_fp32():
+            times["plain_ms"] = graph_ms(lambda: stem.stem_conv_plain(frames, wt, bt), calls=2)
+        small = frames[:BATCH * BUCKETS[0]]
+        times["host_us"] = _host_us(torch, lambda: stem.stem_conv(small, wt, bt))
+        times["unfused_host_us"] = _host_us(
+            torch, lambda: layer(small.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0))
+    bound_ms, bound_by = stem_bound_ms(n)
+    row = {"frames": n, **times, "bound_ms": bound_ms, "bound_by": bound_by,
+           "over_bound": times["ms"] / bound_ms, "blocks_per_sm": per_sm, "grid": grid,
+           "smi": smi}
+    emit({"phase": "scan", "check": "k6_time", **row})
+    del frames, x
+    return {"checks": checks, "time": row,
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
+
+
+def _scan_bf16(torch, model_path: Path, items, embs_f32, forwards: int) -> dict:
+    """The bf16 scan (the benchmark's precision): K6 launched once a forward,
+    each video's embedding against the f32 card scan's; then, on one 64 x 128
+    batch of the clips, the frame CNN's features through K6 against the
+    same bf16 model's unfused path (input_from_frames, cuDNN's conv0)."""
+    from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
+    from video_fingerprint_tpu_torch.utils import trace
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        scanner = FingerprintScanner(str(model_path), device=CARD, batch_size=BATCH, bf16=True)
+    scanner.warmup()
+    before = trace.counter("stem.launches")
+    embs = scanner.embed_clips(items)
+    torch.cuda.synchronize()
+    launches = trace.counter("stem.launches") - before
+    require(launches == forwards, f"bf16 scan: K6 launched {launches} times, not once a "
+                                  f"forward ({forwards})")
+    cos = min(float(np.dot(embs[k], embs_f32[k])) for k, _ in items)
+    require(cos >= STEM_SCAN_COS, f"bf16 scan (K6) vs f32 scan: cosine {cos}")
+    model = scanner.model
+    clips = [c for _, c in items if c.shape[0] >= 128][:BATCH]
+    frames = torch.from_numpy(np.concatenate([c[:128] for c in clips])).to(CARD)
+    with torch.inference_mode():
+        stem_feats = model._encode_flat(frames).float()
+        unfused = model.spatial_encoder(model.input_from_frames(frames)).float()
+    feat_cos = float(torch.nn.functional.cosine_similarity(stem_feats, unfused, dim=1).min())
+    require(feat_cos >= 0.999, f"frame features, K6 vs unfused: cosine {feat_cos}")
+    row = {"stem_launches": launches, "forwards": forwards, "min_cos_vs_f32": cos,
+           "frames": frames.shape[0], "feature_min_cos_vs_unfused": feat_cos,
+           "feature_max_abs_diff": float((stem_feats - unfused).abs().max())}
+    emit({"phase": "scan", "check": "k6_scan_bf16", **row})
+    return row
+
+
+def phase_scan(torch, workdir: Path, smi: str):
     from video_fingerprint_tpu_torch.inference.scanner import FingerprintScanner
     from video_fingerprint_tpu_torch.utils import trace
     from torch.utils.flop_counter import FlopCounterMode
@@ -613,14 +805,15 @@ def phase_scan(torch, workdir: Path):
         per_bucket[b] = per_bucket.get(b, 0) + 1
     forwards = sum(-(-n // BATCH) for n in per_bucket.values())
 
-    before = trace.counter("k1.launches")
+    before = trace.counter("k1.launches"), trace.counter("stem.launches")
     t0 = time.perf_counter()
     embs = scanner.embed_clips(items)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
-    launches = trace.counter("k1.launches") - before
+    launches = trace.counter("k1.launches") - before[0]
     require(launches == 4 * forwards,
             f"attention kernel launches {launches} != 4 x {forwards} forwards")
+    require(trace.counter("stem.launches") == before[1], "the f32 scan launched K6")
     require(set(embs) == {k for k, _ in items}, "missing embeddings")
     E = np.stack([embs[k] for k, _ in items])
     norms = np.linalg.norm(E, axis=1)
@@ -659,6 +852,9 @@ def phase_scan(torch, workdir: Path):
     cos = min(float(np.dot(embs[k], cpu_embs[k])) for k, _ in few)
     require(cos >= 0.9999, f"card vs CPU forward cosine {cos}")
     long = _scan_long(torch, workdir, model_path, rng)
+    scan_bf16 = _scan_bf16(torch, model_path, items, embs, forwards)
+    k6 = _k6(torch, scanner, smi)
+    k6["launches"] = scan_bf16["stem_launches"]
 
     # videos/s at bucket 128, B = 64: through the batching stage (host
     # staging, copies, forward, readback) and the forward alone on the card
@@ -692,8 +888,8 @@ def phase_scan(torch, workdir: Path):
           "other_max_sim": other_max, "groups": results, "card_vs_cpu_min_cos": cos,
           "b128_stage_videos_per_s": stage.pop("videos_per_s"), "b128_stage_fill": stage,
           "forward_b64": forward,
-          "max_frames_1000": long})
-    return launches, model_path
+          "max_frames_1000": long, "bf16_scan": scan_bf16, "k6": k6})
+    return launches, model_path, k6
 
 
 def phase_cli(torch, workdir: Path, model_path: Path):
@@ -861,7 +1057,8 @@ CARD = "cuda"  # the device of the phases below
 
 
 LAUNCH_COUNTERS = {"attention": "k1.launches", "conv_parity": "convblock.conv_parity",
-                   "conv_strided": "convblock.conv_strided", "topk": "topk.launches"}
+                   "conv_strided": "convblock.conv_strided", "topk": "topk.launches",
+                   "stem": "stem.launches"}
 
 
 def _launch_counts(*kernels):
@@ -3702,7 +3899,7 @@ def main(argv=None) -> int:
             if name == "attention":
                 att = phase_attention(torch)
             elif name == "scan":
-                launches, _ = phase_scan(torch, work)
+                launches, _, k6 = phase_scan(torch, work, smi)
             elif name == "cli":
                 phase_cli(torch, work, model_path)
             elif name == "convblock":
@@ -3765,6 +3962,19 @@ def main(argv=None) -> int:
         **{key: k4[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library",
                                     "library_cudnn_bf16_conv1_ms", "layers")},
+    }, {
+        "name": "stem",
+        "route": "cuda",
+        "source": "video_fingerprint_tpu_torch/csrc/stem.cu",
+        "replaces": "models/attention.py::input_from_frames + cuDNN conv0, its bias and ReLU",
+        "replaces_what": "the uint8 convert, /255, conv0, bias and ReLU passes of the bf16 "
+                         "scan; not a Pallas kernel (XLA's conv)",
+        "launches": k6["launches"],
+        "launches_counted": "per forward of phase 3's bf16 scan",
+        "max_abs_err": k6["max_abs_err"],
+        **{key: k6["time"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "unfused_ms", "host_us",
+                                            "unfused_host_us")},
     }, {
         "name": "topk",
         "route": "cuda",

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.ops import attention as attn
 from video_fingerprint_tpu_torch.ops import convblock as cb
+from video_fingerprint_tpu_torch.ops import stem
 from video_fingerprint_tpu_torch.utils import trace
 from video_fingerprint_tpu_torch.utils.precision import full_fp32
 
@@ -442,3 +444,84 @@ def test_topk_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="both"):
         topk.topk_kernel(q, c.bfloat16(), 20, query_rnorm=torch.ones(4, device="cuda"))
     assert trace.counter("topk.launches") == before
+
+
+def _stem_inputs(n, h, w, seed=0):
+    """Seeded frames on the card (starting with every byte value) and conv0
+    weights whose channels 0-2 pass the centre tap's input channels through
+    (weight 1, bias 0), so that K6's output there is its normalised input."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device="cuda", generator=g)
+    flat = frames.view(-1)
+    flat[:256] = torch.arange(min(256, flat.numel()), dtype=torch.uint8, device="cuda")
+    wt = (torch.randn((32, 3, 5, 5), generator=g, device="cuda") / 8).to(torch.bfloat16)
+    b = (torch.randn((32,), generator=g, device="cuda") / 8).to(torch.bfloat16)
+    wt[:3] = 0
+    for c in range(3):
+        wt[c, c, 2, 2] = 1
+    b[:3] = 0
+    return frames, wt, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w", [(5, 64, 64), (64 * 32, 64, 64), (1061, 64, 64),
+                                   (7, 37, 48), (3, 1, 16), (2, 96, 96)])
+def test_stem_kernel_matches_plain(card, n, h, w):
+    """K6: one launch (the counters move by one and by n frames), the model's
+    own normalisation bit for bit in channels 0-2, every channel within one
+    bf16 ulp of the plain version."""
+    frames, wt, b = _stem_inputs(n, h, w)
+    before = trace.counter("stem.launches"), trace.counter("stem.frames")
+    blocks = trace.counter("stem.blocks")
+    out = stem.stem_conv(frames, wt, b)
+    torch.cuda.synchronize()
+    assert (trace.counter("stem.launches"), trace.counter("stem.frames")) == (
+        before[0] + 1, before[1] + n)
+    assert 1 <= trace.counter("stem.blocks") - blocks <= n
+    assert out.shape == (n, (h + 1) // 2, w // 2, 32) and out.dtype == torch.bfloat16
+    x = frames.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+    assert torch.equal(out[..., :3].view(torch.int16),
+                       x[:, :, ::2, ::2].permute(0, 2, 3, 1).view(torch.int16))
+    with full_fp32():
+        plain = stem.stem_conv_plain(frames, wt, b)
+    err, ok = cb.compare(out, plain, cb.ONE_ULP)
+    assert ok, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [0, 255])
+def test_stem_kernel_constant_frames(card, fill):
+    frames, wt, b = _stem_inputs(64, 64, 64)
+    frames.fill_(fill)
+    out = stem.stem_conv(frames, wt, b)
+    with full_fp32():
+        plain = stem.stem_conv_plain(frames, wt, b)
+    err, ok = cb.compare(out, plain, cb.ONE_ULP)
+    assert ok, err
+
+
+@pytest.mark.gpu
+def test_stem_kernel_refuses_what_it_does_not_take(card):
+    frames, wt, b = _stem_inputs(4, 64, 64)
+    before = trace.counter("stem.launches")
+    for bad, exc in ((frames.float(), TypeError), (frames[:, :, :40].contiguous(), ValueError),
+                     (frames.transpose(1, 2), ValueError),
+                     (frames.view(-1)[3:3 + 3 * 64 * 64 * 3].view(3, 64, 64, 3), ValueError)):
+        with pytest.raises(exc):
+            stem.stem_conv(bad, wt, b)
+    with pytest.raises(ValueError):
+        stem.stem_conv(frames, wt.float(), b)
+    assert trace.counter("stem.launches") == before
+
+
+@pytest.mark.gpu
+def test_stem_card_frames_it_does_not_take_raise(card):
+    """Under the fused bf16 eval model a card's uint8 batch goes to K6
+    whatever its shape: 112 wide it raises, it does not go to cuDNN."""
+    torch.manual_seed(0)
+    model = create_model("attention", fused=True).to(torch.bfloat16).to("cuda").eval()
+    frames = torch.zeros((2, 112, 112, 3), dtype=torch.uint8, device="cuda")
+    before = trace.counter("stem.launches")
+    with torch.inference_mode(), pytest.raises(ValueError, match="the stem kernel takes"):
+        model._encode_flat(frames)
+    assert trace.counter("stem.launches") == before

@@ -115,7 +115,12 @@ class VideoFingerprintAttention(nn.Module):
         return x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 else x.to(self.dtype)
 
     def _encode_flat(self, flat_frames: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) frames -> (N, spatial_dim)."""
+        """(N, H, W, C) frames -> (N, spatial_dim). Where K6 engages (a
+        card's uint8 frames under the fused bf16 eval model: `stem_engages`)
+        the frames go to the spatial encoder as they are and K6 does the /255
+        with conv0; all others go through input_from_frames."""
+        if self.spatial_encoder.stem_engages(flat_frames):
+            return self.spatial_encoder(flat_frames)
         return self.spatial_encoder(self.input_from_frames(flat_frames))
 
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:

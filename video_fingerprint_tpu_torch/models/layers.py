@@ -6,8 +6,10 @@ reference `.pth` loads with a strict `load_state_dict`. Sequences are
 (B, T, C) as in the JAX package; frames enter the spatial encoder as NCHW
 views of channels-last memory, the layout cuDNN takes directly.
 
-Convs, projections and the MLP are cuDNN/cuBLAS calls. In eval mode the
-attention itself is the hand-written kernel in ops/attention.py; in train
+Convs, projections and the MLP are cuDNN/cuBLAS calls, but for the bf16
+eval spatial encoder's first conv on a card's uint8 frames, which is the
+hand-written stem kernel in ops/stem.py. In eval mode the attention
+itself is the hand-written kernel in ops/attention.py; in train
 mode it is plain torch math with dropout on the weights, as the JAX
 package computes it outside its Pallas kernel (models/layers.py:320-332
 there). Dropout sits where the JAX package has it (nn.Dropout modules,
@@ -21,6 +23,7 @@ statistics of the global batch instead, as JAX does under GSPMD
 
 from __future__ import annotations
 
+import itertools
 import math
 from functools import lru_cache
 from typing import Optional, Sequence
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from video_fingerprint_tpu_torch.ops import stem
 from video_fingerprint_tpu_torch.ops.attention import MASKED_BIAS, multihead_attention
 from video_fingerprint_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
@@ -145,6 +149,10 @@ class SpatialEncoder(nn.Module):
     of the first conv (JAX `s2d`, off by default): the input's 2x2 blocks
     become 12 channels and conv0 a 3x3 stride-1 conv with padding 1, whose
     weights come from models/fuse.py (fuse_state_dict(s2d=True)).
+
+    Where `stem_engages` them, forward takes a card's (N, H, W, 3) uint8
+    frames as they are: K6 (ops/stem.py) then does their /255, conv0, its
+    bias and its ReLU in one kernel, and encoder[3:] goes on from there.
     """
 
     def __init__(self, out_dim: int = 128, fused: bool = False, s2d: bool = False):
@@ -160,7 +168,30 @@ class SpatialEncoder(nn.Module):
         layers += [nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(in_ch, out_dim)]
         self.encoder = nn.Sequential(*layers)  # indices 0..14 as in the reference
 
+    def stem_engages(self, frames: torch.Tensor) -> bool:
+        """Whether K6 computes conv0 for these frames: uint8 frames on a card,
+        eval mode, bf16, conv0 the 5x5 stride-2 3 -> 32 conv with its
+        BatchNorm folded, no s2d, and no gradient to keep (K6 has no
+        backward). Their shape and layout do not decide: K6 raises on frames
+        it does not take."""
+        conv0 = self.encoder[0]
+        return (frames.dtype == torch.uint8 and frames.is_cuda
+                and not self.training and not self.s2d
+                and isinstance(self.encoder[1], nn.Identity)
+                and conv0.weight.dtype == torch.bfloat16
+                and (conv0.in_channels, conv0.out_channels, conv0.kernel_size,
+                     conv0.stride, conv0.padding)
+                == (stem.CIN, stem.COUT, (stem.KSIZE,) * 2, (stem.STRIDE,) * 2,
+                    (stem.PAD,) * 2)
+                and not (torch.is_grad_enabled() and conv0.weight.requires_grad))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.uint8:  # (N, H, W, 3) frames, where stem_engages them
+            conv0 = self.encoder[0]
+            x = stem.stem_conv(x, conv0.weight, conv0.bias).permute(0, 3, 1, 2)
+            for layer in itertools.islice(self.encoder, 3, None):
+                x = layer(x)
+            return x
         return self.encoder(space_to_depth(x) if self.s2d else x)
 
 

@@ -58,7 +58,10 @@ staged batch, padding included, and the clips' own), `embed.fill_pooled`
 videos `reduce_windows` took in and gave out), `k1.launches`,
 `convblock.<entry>`, `conv_int8.<entry>` (kernel launches per entry
 point), `topk.launches` (launches of the exact search's two kernels, two a
-search) and `topk.repaired_rows` (rows the certified searches repaired).
+search), `topk.repaired_rows` (rows the certified searches repaired), and
+`stem.launches`, `stem.frames` and `stem.blocks` (K6's launches, one a bf16
+forward of the attention model on a card, the frames they took and the
+blocks of their persistent grids).
 """
 
 from __future__ import annotations
