@@ -195,7 +195,16 @@ Phases, each of which raises (exit code 1) on any failure:
      frames, then 3x3 32 -> 64 -> 128 -> 256) at 256 and 5 frames: the
      int32 sums and the int8 and bf16 outputs bit for bit; each layer timed
      at 16,384 frames beside the plain version, its bound, and for conv1
-     torch._int_mm on its im2col matrix and cuDNN's bf16 conv.
+     torch._int_mm on its im2col matrix and cuDNN's bf16 conv;
+ 17. TimeSformer-Base (models/timesformer.py) at its published widths in
+     bf16, 64 windows of 8 frames at 224 px: K1 at both of its shapes
+     (temporal, 64·196 sequences x 12 heads of T = 8; spatial, 64·8 x 12
+     of T = 197; D = 64, no mask), on strided views of a real qkv
+     projection of layer 0, against the plain version, timed beside it, SDPA
+     and the bound; then one forward with K1's counters read just before
+     and after it: 24 launches, `k1.rows_launched` and `k1.rows_useful` as
+     reckoned from QUERY_TILE, no softmax or library attention kernel
+     among its kernels, and its device time by kernel.
 
 Phases 7, 11 and 12 draw the 10^6 index and the self-search rows once and
 compute their float64 oracles once (_index_data, _oracle).
@@ -3844,8 +3853,142 @@ def phase_tools(torch, workdir: Path, smi: str):
     return row
 
 
+TSF_WINDOWS = 64  # the timesformer-library-long cell's batch
+# names of kernels that would mean an attention ran off K1
+ATTENTION_FALLBACK = re.compile(r"softmax|fmha|flash|efficient_attention|sdpa", re.I)
+
+
+def _timesformer_bf16(torch):
+    """TimeSformer-Base at its published widths in bf16 on the card, its
+    linear and patch weights drawn at the variance-keeping scale (normal,
+    std 1 / sqrt(fan_in)) so that attention scores spread as a trained
+    model's do, and a seeded uint8 batch of TSF_WINDOWS windows."""
+    from torch import nn
+
+    from video_fingerprint_tpu_torch.models import create_model
+
+    model = create_model("timesformer")
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                std = m.weight[0].numel() ** -0.5
+                m.weight.normal_(0.0, std, generator=g)
+                m.bias.normal_(0.0, std, generator=g)
+        emb = model.embeddings
+        for p in (emb.cls_token, emb.position_embeddings, emb.time_embeddings):
+            p.normal_(0.0, 0.02, generator=g)
+    model = model.to(CARD, torch.bfloat16).eval()
+    frames = torch.randint(0, 256, (TSF_WINDOWS, model.num_frames, 224, 224, 3),
+                           dtype=torch.uint8, device=CARD,
+                           generator=torch.Generator(device=CARD).manual_seed(SEED))
+    return model, frames
+
+
+def _timesformer_attention(torch, model, frames) -> dict:
+    """K1 at TimeSformer's two shapes, given (S, H, T, D) strided views of
+    layer 0's qkv projections of the batch, as the model gives them: against
+    the plain version (bf16 tolerance), timed beside it, SDPA and the bound."""
+    import torch.nn.functional as F
+
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils.precision import full_fp32
+    from video_fingerprint_tpu_torch.utils.timing import graph_ms
+
+    layer = model.encoder.layer[0]
+    cls, patches = model.embed(frames)
+    B, N, T, C = patches.shape
+    frame_major = torch.cat([cls[:, None, None].expand(B, T, 1, C), patches.transpose(1, 2)],
+                            dim=2)
+    inputs = {"temporal": (layer.temporal_attention,
+                           layer.temporal_layernorm(patches).view(B * N, T, C)),
+              "spatial": (layer.attention,
+                          layer.layernorm_before(frame_major).view(B * T, 1 + N, C))}
+    del frame_major
+    rows = {}
+    for kind, (att, h) in inputs.items():
+        S, L, _ = h.shape
+        H = att.attention.num_heads
+        qkv = att.attention.qkv(h).view(S, L, 3, H, C // H)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        require(not q.is_contiguous(), f"{kind}: q is not a strided view of the qkv")
+        bias = attn._key_bias(None, (S, L), q.device)[:, None, :]
+        out = attn.multihead_attention(q, k, v)
+        torch.cuda.synchronize()
+        with full_fp32():
+            plain = attn._attention_torch(q, k, v, bias)
+        require(bool(torch.isfinite(out).all()), f"{kind}: non-finite output")
+        err = (out.float() - plain.float()).abs().max().item()
+        require(err <= TOLERANCE["bfloat16"], f"timesformer {kind}: max abs err {err}")
+        scale = plain.float().abs().max().item()
+        del out, plain
+        kernel_ms = graph_ms(lambda: attn.multihead_attention(q, k, v))
+        with full_fp32():
+            plain_ms = graph_ms(lambda: attn._attention_torch(q, k, v, bias))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by = attention_bound_ms(S * H, L, "bfloat16", 0, head_dim=C // H)
+        rows[kind] = {"phase": "timesformer", "check": "k1", "kind": kind, "instances": S * H,
+                      "T": L, "D": C // H, "max_abs_err": err, "max_abs_out": scale,
+                      "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / kernel_ms}
+        emit(rows[kind])
+        del qkv, q, k, v
+    return rows
+
+
+def phase_timesformer(torch, smi: str) -> dict:
+    """TimeSformer-Base in bf16 at the cell's batch: K1 at both of its shapes
+    on views of a real qkv projection, then one forward with K1's counters
+    read just before and after it (24 launches, the query rows as
+    reckoned), its kernels (no attention off K1) and its device time."""
+    from video_fingerprint_tpu_torch.ops import attention as attn
+    from video_fingerprint_tpu_torch.utils import trace
+    from video_fingerprint_tpu_torch.utils.timing import cuda_ms
+
+    with torch.no_grad():
+        model, frames = _timesformer_bf16(torch)
+        rows = _timesformer_attention(torch, model, frames)
+        forward = lambda: model(frames)
+        forward()  # builds K1 at D = 64 once, outside the count
+        torch.cuda.synchronize()
+        names = ("k1.launches", "k1.rows_launched", "k1.rows_useful", "tsf.windows")
+        before = {n: trace.counter(n) for n in names}
+        emb = model(frames)
+        torch.cuda.synchronize()
+        counted = {n: trace.counter(n) - before[n] for n in names}
+        B, T = frames.shape[:2]
+        N = (frames.shape[2] // model.patch_size) ** 2
+        layers = len(model.encoder.layer)
+        H = model.encoder.layer[0].attention.attention.num_heads
+        tile = lambda t: -(-t // attn.QUERY_TILE) * attn.QUERY_TILE
+        want = {"k1.launches": 2 * layers,
+                "k1.rows_launched": layers * H * (B * N * tile(T) + B * T * tile(N + 1)),
+                "k1.rows_useful": layers * H * (B * N * T + B * T * (N + 1)),
+                "tsf.windows": B}
+        require(counted == want, f"timesformer forward counted {counted}, reckoned {want}")
+        require(bool(torch.isfinite(emb).all()), "timesformer forward: non-finite embedding")
+        norms = torch.linalg.vector_norm(emb, dim=1)
+        require(bool(((norms - 1).abs() < 1e-3).all()), "timesformer forward: not unit norm")
+        kernels = _device_kernels(torch, forward)
+        require(isinstance(kernels, list), f"timesformer forward: profiler failed {kernels}")
+        fallback = [k for k in kernels if ATTENTION_FALLBACK.search(k)]
+        require(not fallback, f"timesformer forward: attention off K1 {fallback}")
+        require(any("attention_bf16" in k for k in kernels), "timesformer forward: no K1")
+        forward_ms = cuda_ms(forward)
+        times = _kernel_times(torch, forward, top=12)
+    row = {"phase": "timesformer", "check": "forward", "smi": smi, "windows": B,
+           "counted": counted, "tile_fill_pct": 100.0 * counted["k1.rows_useful"]
+           / counted["k1.rows_launched"], "forward_ms": forward_ms,
+           "k1_forward_ms": sum(r["kernel_ms"] for r in rows.values()) * layers,
+           "kernels": times}
+    emit(row)
+    return {"k1": rows, "forward": row}
+
+
 PHASES = ("attention", "scan", "cli", "convblock", "scan3d", "index", "train", "augment",
-          "native", "multigpu", "multiproc", "bench", "profile", "graft", "tools")
+          "native", "multigpu", "multiproc", "bench", "profile", "graft", "tools",
+          "timesformer")
 
 
 def _settle(torch) -> None:
@@ -3926,6 +4069,8 @@ def main(argv=None) -> int:
                 phase_graft(torch, smi)
             elif name == "tools":
                 k4 = phase_tools(torch, work, smi)["results"]["k4"]
+            elif name == "timesformer":
+                phase_timesformer(torch, smi)
             phase_seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "done", "phases": run, "phase_seconds": phase_seconds,
           "seconds": time.perf_counter() - t_start})

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from functools import lru_cache
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -82,21 +82,47 @@ def decode_clip(path: Path | str, start_frame: int, num_frames: int) -> List[np.
     reference passes a frame index to `container.seek`, which PyAV reads in
     time_base units; the JAX package fixes that the same way); cv2 seeks
     with CAP_PROP_POS_FRAMES."""
-    frames: List[np.ndarray] = []
-    try:
-        if default_backend() == "pyav":
-            frames = _decode_clip_av(path, start_frame, num_frames)
-        else:
-            frames = _decode_clip_cv2(path, start_frame, num_frames)
-    except Exception:  # pads to black below, as the reference does
-        frames = []
+    kept = _decode_span(path, start_frame, num_frames, None)
+    frames = [kept[i] for i in range(len(kept))]
     while len(frames) < num_frames:
         frames.append(frames[-1].copy() if frames
                       else np.zeros((480, 640, 3), dtype=np.uint8))
     return frames[:num_frames]
 
 
-def _decode_clip_av(path, start_frame, num_frames) -> List[np.ndarray]:
+def decode_frames(path: Path | str, indices: Sequence[int]) -> List[np.ndarray]:
+    """The frames at `indices` (ascending, repeats allowed), one an index:
+    the span from indices[0] to indices[-1] is decoded as `decode_clip`
+    decodes it, and only the frames asked for are converted to RGB arrays.
+    A frame past the video's end is the last frame that decoded, and every
+    frame is black when nothing decoded, as `decode_clip` pads: the result
+    is `decode_clip(path, indices[0], indices[-1] - indices[0] + 1)` at the
+    indices' offsets."""
+    first = int(indices[0])
+    kept = _decode_span(path, first, int(indices[-1]) - first + 1,
+                        {int(i) - first for i in indices})
+    last = kept[max(kept)] if kept else np.zeros((480, 640, 3), dtype=np.uint8)
+    return [kept.get(int(i) - first, last) for i in indices]
+
+
+def _decode_span(path, start_frame: int, num_frames: int,
+                 wanted: Optional[Set[int]]) -> Dict[int, np.ndarray]:
+    """{offset: RGB frame} of the first `num_frames` frames from
+    `start_frame` that decode, those at offsets in `wanted` only (every one
+    for None), and the last that decoded where the video ends inside the
+    span (which pads what follows); empty when decoding fails (the callers
+    pad, as the reference does)."""
+    walk = _decode_span_av if default_backend() == "pyav" else _decode_span_cv2
+    try:
+        kept, decoded = walk(path, start_frame, num_frames, wanted)
+        if 0 < decoded < num_frames and decoded - 1 not in kept:
+            kept.update(walk(path, start_frame, decoded, {decoded - 1})[0])
+        return kept
+    except Exception:
+        return {}
+
+
+def _decode_span_av(path, start_frame, num_frames, wanted) -> Tuple[Dict[int, np.ndarray], int]:
     import av
 
     container = av.open(str(path))
@@ -106,32 +132,36 @@ def _decode_clip_av(path, start_frame, num_frames) -> List[np.ndarray]:
     if start_frame > 0 and fps > 0 and stream.time_base:
         target_pts = int(start_frame / fps / stream.time_base)
         container.seek(target_pts, stream=stream)
-    frames: List[np.ndarray] = []
+    kept, offset = {}, 0
     for frame in container.decode(stream):
         if frame.pts is not None and frame.pts < target_pts:
             continue
-        frames.append(frame.to_ndarray(format="rgb24"))
-        if len(frames) >= num_frames:
+        if wanted is None or offset in wanted:
+            kept[offset] = frame.to_ndarray(format="rgb24")
+        offset += 1
+        if offset >= num_frames:
             break
     container.close()
-    return frames
+    return kept, offset
 
 
-def _decode_clip_cv2(path, start_frame, num_frames) -> List[np.ndarray]:
+def _decode_span_cv2(path, start_frame, num_frames, wanted) -> Tuple[Dict[int, np.ndarray], int]:
     import cv2
 
-    frames: List[np.ndarray] = []
+    kept, decoded = {}, 0
     cap = cv2.VideoCapture(str(path))
     if cap.isOpened():
         if start_frame > 0:
             cap.set(cv2.CAP_PROP_POS_FRAMES, start_frame)
-        while len(frames) < num_frames:
-            ok, bgr = cap.read()
-            if not ok:
-                break
-            frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+        while decoded < num_frames and cap.grab():  # decodes; `retrieve` converts
+            if wanted is None or decoded in wanted:
+                ok, bgr = cap.retrieve()
+                if not ok:
+                    break
+                kept[decoded] = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+            decoded += 1
     cap.release()
-    return frames
+    return kept, decoded
 
 
 def decode_subsampled(path: Path | str, max_frames: int,

@@ -1,7 +1,9 @@
 """Fingerprint scanner: directory scan -> embeddings -> duplicate groups.
 
-Port of video_fingerprint_tpu/inference/scanner.py, for both model
-families:
+Port of video_fingerprint_tpu/inference/scanner.py, for the upstream's two
+model families and TimeSformer; what differs between them (bucket rule,
+clip lengths, window plan and frame sampler, staged forward, memory
+layout) is the checkpoint's `ModelFamily` (inference/family.py):
 
   - the checkpoint (`.ckpt` or reference `.pth`) loads, BatchNorm folds into
     the convs (on by default), and the model is rebuilt from the embedded
@@ -10,8 +12,10 @@ families:
     clips on host threads. The attention model takes one subsampled clip
     per video; the 3D model takes windows of up to `clip_length` frames
     (`window_plan`: one window for a short video, 3-5 evenly strided ones
-    for a longer one). With `native_decode` the native libav worker
-    (utils/native_decode.py) decodes, scales and crops in one pass; with
+    for a longer one), TimeSformer `num_frames` frames sampled from each
+    such window (only those are decoded). With `native_decode` the native
+    libav worker (utils/native_decode.py) decodes, scales and crops in one
+    pass; with
     `native_preprocess` (and no native decode) cv2 decodes and the native
     thread pool (utils/native.py) resizes, crops and normalizes the
     attention clips to float32, which are then staged as float32;
@@ -19,15 +23,17 @@ families:
     and forwards fixed-shape batches: the attention model masks the padding
     (partial batches get rows whose mask is all False); the 3D model's
     buckets are multiples of its frame stride, where zero padding is the
-    model's own. Staging buffers are pinned, the copies to and from the
-    card are asynchronous, and one batch's result is read back only after
-    the next batch is on its way. A batch of STAGE_POOL_MIN_BYTES or more
-    is padded into its slot by a pool of host threads, a row a task. Its
+    model's own; TimeSformer's one bucket is its num_frames. Staging buffers
+    are pinned, the copies to and from the card are asynchronous, and one
+    batch's result is read back only after the next batch is on its way. A
+    batch of STAGE_POOL_MIN_BYTES or more is padded into its slot by a pool
+    of host threads, a row a task. Its
     spans (`embed.*`, `decode.queue_wait`), its counts of staged and useful
     frames and of pooled fills are utils/trace.py's;
-  - a 3D video's windows reduce to one embedding: a single window's as it
-    is, several windows' mean renormalized (`reduce_windows`, with its
-    span `scan.reduce_windows` and its counts of windows and videos);
+  - a windowed video's (3D, TimeSformer) windows reduce to one embedding:
+    a single window's as it is, several windows' mean renormalized
+    (`reduce_windows`, with its span `scan.reduce_windows` and its counts of
+    windows and videos);
   - an optional cache of an earlier scan (inference/scan_cache.py) skips
     every file whose size and md5 of the first MiB are unchanged;
   - duplicates are grouped (inference/dedup.py) from the full similarity
@@ -59,8 +65,8 @@ import torch
 
 from video_fingerprint_tpu_torch.data import decode, preprocess
 from video_fingerprint_tpu_torch.inference import dedup
+from video_fingerprint_tpu_torch.inference.family import MIN_FRAMES, MODEL_TYPES, family_for
 from video_fingerprint_tpu_torch.inference.index import identity_mismatch
-from video_fingerprint_tpu_torch.models import create_model
 from video_fingerprint_tpu_torch.models.fuse import fuse_state_dict
 from video_fingerprint_tpu_torch.ops.topk import (shard_search, sharded_topk_cosine,
                                                  topk_cosine)
@@ -74,8 +80,6 @@ from video_fingerprint_tpu_torch.utils.torch_compat import variables_to_state_di
 
 DEFAULT_EXTENSIONS = [".mp4", ".avi", ".mov", ".mkv", ".webm", ".flv"]
 SCAN_BUCKETS = (32, 64, 128, 256, 512)
-MIN_FRAMES = 10  # reference minimum (fingerprint.py:238-240)
-MODEL_TYPES = ("attention", "3d", "cnn3d")
 # The fill of a staging slot: a batch of at least STAGE_POOL_MIN_BYTES is
 # padded into its slot by up to STAGE_POOL_THREADS host threads, a row a
 # task (numpy's copies release the GIL); a smaller one by the calling thread.
@@ -264,8 +268,9 @@ class FingerprintScanner:
     computes in float32 with TF32 off for cuDNN convolutions and cuBLAS
     matmuls; bf16=True casts the model to bfloat16. optimize folds eval
     BatchNorm into the convs (lossless). The model family, its widths and
-    the 3D model's clip_length (default 128) and frame_stride (default 32)
-    come from the checkpoint's config. native_decode and native_preprocess
+    its sizes (frame_size; a windowed model's clip_length; the 3D model's
+    frame_stride) come from the checkpoint's config, else from the family's
+    defaults (inference/family.py). native_decode and native_preprocess
     select the native host paths (utils/native_decode.py, utils/native.py);
     where a library cannot be built the scanner says so, as the JAX
     package's does, and decodes with cv2.
@@ -321,15 +326,16 @@ class FingerprintScanner:
         self.model_type = self.config.get("model_type", "attention")
         if self.model_type not in MODEL_TYPES:
             raise ValueError(f"Unknown model type: {self.model_type}")
-        self.is_3d = self.model_type != "attention"
         # identity of the embedding space: config + a hash of the raw
         # checkpoint arrays, equal to the JAX scanner's for the same file
         param_hash = _hash_variables(self.variables)
-        self.frame_size = self.config.get("frame_size", 64)
         self.max_frames = self.config.get("max_frames", 500)
         self.embedding_dim = self.config.get("embedding_dim", 256)
-        self.clip_length = self.config.get("clip_length", 128)
-        self.frame_stride = self.config.get("frame_stride", 32)
+        self.buckets = tuple(
+            b for b in (buckets or SCAN_BUCKETS) if b < self.max_frames
+        ) + (self.max_frames,)
+        self.family = family_for(self.model_type, self.config, self.buckets)
+        self.frame_size = self.family.frame_size
         self.model_identity = {
             "model_type": self.model_type,
             "embedding_dim": self.embedding_dim,
@@ -343,32 +349,18 @@ class FingerprintScanner:
         sd = variables_to_state_dict(self.variables, self.model_type)
         if self.fused:
             sd = fuse_state_dict(sd, self.model_type)
-        self.model = create_model(
-            self.model_type,
-            spatial_dim=self.config.get("spatial_dim", 128),
-            temporal_dim=self.config.get("temporal_dim", 256),
-            embedding_dim=self.embedding_dim,
-            num_attention_blocks=self.config.get("num_attention_blocks", 4),
-            frame_stride=self.frame_stride,
-            fused=self.fused,
-        )
+        self.model = self.family.build(self.config, self.fused)
         self.model.load_state_dict(
             {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
         self.model.to(device=self.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32).eval()
         if self.device.type == "cuda":  # the layouts cuDNN takes directly
-            if self.is_3d:
-                self.model.encoder.to(memory_format=torch.channels_last_3d)
-            else:
-                self.model.spatial_encoder.to(memory_format=torch.channels_last)
+            self.family.prepare(self.model)
 
-        self.buckets = tuple(
-            b for b in (buckets or SCAN_BUCKETS) if b < self.max_frames
-        ) + (self.max_frames,)
         # float32 only from the native preprocess path (the attention
         # producer without native decode); uint8 from cv2 and native decode
         self.stage_dtype = (np.float32 if (self.native_preprocess and not self.native_decode
-                                           and not self.is_3d) else np.uint8)
+                                           and self.family.host_floats) else np.uint8)
         shard_devices = self.devices if data_parallel else [self.device]
         self.batch_size = pad_to_multiple(batch_size, len(shard_devices))
         # a replica of the model on each other device; the shards' staging
@@ -397,18 +389,9 @@ class FingerprintScanner:
         kernel build and cuDNN's plans happen before the scan: every bucket
         when num_frames is None, else the bucket of num_frames (attention),
         or clip_length plus the stride-multiple bucket of a shorter
-        num_frames (3D)."""
+        num_frames (3D); TimeSformer has one bucket."""
         fs = self.frame_size
-        if self.is_3d:
-            lengths = {self.clip_length}
-            if num_frames is not None and num_frames < self.clip_length:
-                lengths.add(self._3d_bucket(max(MIN_FRAMES, num_frames)))
-        elif num_frames is None:
-            lengths = set(self.buckets)
-        else:
-            lengths = {preprocess.bucket_for_length(min(num_frames, self.max_frames),
-                                                    self.buckets)}
-        for length in sorted(lengths):
+        for length in sorted(self.family.warmup_lengths(num_frames)):
             for staging in self._shards:
                 B = staging.batch_size
                 frames = torch.zeros((B, length, fs, fs, 3), dtype=staging.dtype,
@@ -425,10 +408,7 @@ class FingerprintScanner:
         """(B, T, H, W, 3) staged batch and its (B, T) mask -> (B, D), by the
         model (or replica) on the batch's device."""
         model = self._replicas.get(frames.device, self.model)
-        if self.is_3d:  # stride-multiple buckets: the zero padding is the model's own
-            return model(frames)
-        return model.forward_flat(frames.view((-1,) + tuple(frames.shape[2:])),
-                                  frames.shape[0], mask)
+        return self.family.forward(model, frames, mask)
 
     # ------------------------------------------------------------------
     # Single-video extraction (reference fingerprint.py:216-320)
@@ -442,8 +422,8 @@ class FingerprintScanner:
     def extract_fingerprint(self, video_path: Path, num_segments: int = 3
                             ) -> Optional[np.ndarray]:
         """One video, unbatched: its embedding, or None when it decodes to
-        (attention) or has (3D) fewer than 10 frames."""
-        if self.is_3d:
+        (attention) or has (windowed models) fewer than 10 frames."""
+        if self.family.windowed:
             return self._extract_3d(Path(video_path))
         frames = decode.decode_subsampled(video_path, self.max_frames)
         if len(frames) < MIN_FRAMES:
@@ -473,37 +453,40 @@ class FingerprintScanner:
             stacked.reshape((-1,) + stacked.shape[2:]), len(clips))
         return np.mean(embeddings, axis=0)
 
+    @property
+    def clip_length(self) -> int:
+        """A windowed model's window length (the family's)."""
+        return self.family.clip_length
+
+    @property
+    def frame_stride(self) -> int:
+        """The 3D model's frame stride (the family's)."""
+        return self.family.frame_stride
+
     def window_plan(self, total_frames: int) -> List[Tuple[int, int]]:
-        """3D windows (start, length) of a video of total_frames frames: one
-        window of the whole video up to clip_length frames, else
-        min(5, max(3, total // (2 * clip_length))) evenly strided windows of
-        clip_length frames (fingerprint.py:293-318)."""
-        L = self.clip_length
-        if total_frames <= L:
-            return [(0, total_frames)]
-        n = min(5, max(3, total_frames // (L * 2)))
-        stride = (total_frames - L) // (n - 1)
-        return [(i * stride, L) for i in range(n)]
+        """Windows (start, length) of a windowed model's video of
+        total_frames frames (`WindowedFamily.window_plan`)."""
+        return self.family.window_plan(total_frames)
 
     def _3d_bucket(self, num_frames: int) -> int:
-        """Padded length of a 3D clip: the next multiple of frame_stride,
-        capped at clip_length. The model zero-pads time to that multiple
-        anyway (models/cnn3d.py), so a clip padded there embeds as its own
-        length does, and short videos share batches."""
-        stride = max(1, self.frame_stride)
-        return min(self.clip_length, -(-num_frames // stride) * stride)
+        """Padded length of a windowed model's clip of num_frames frames."""
+        return self.family.bucket(num_frames)
 
     def _window_clip(self, video_path: Path, start: int, length: int,
                      normalize: bool) -> np.ndarray:
-        frames = decode.decode_clip(video_path, start, length)
+        """The frames the model takes of one window, decoded, cropped and
+        resized: all of them (3D), or those `frames_of` samples (TimeSformer)."""
+        offsets = self.family.frames_of(length)
+        frames = (decode.decode_clip(video_path, start, length) if offsets is None
+                  else decode.decode_frames(video_path, start + offsets))
         frames = [preprocess.square_center_crop_resize(f, self.frame_size)
                   for f in frames]
         return (preprocess.frames_to_clip(frames) if normalize
                 else preprocess.frames_to_clip_u8(frames))
 
     def _extract_3d(self, video_path: Path) -> Optional[np.ndarray]:
-        """One video through the 3D model window by window (batch 1, float
-        clips normalized on the host)."""
+        """One video through a windowed model (3D or TimeSformer) window by
+        window (batch 1, float clips normalized on the host)."""
         info = decode.probe(video_path)
         if not info or info.total_frames < MIN_FRAMES:
             return None
@@ -560,8 +543,8 @@ class FingerprintScanner:
             video_paths = remaining
 
         start = time.time()
-        if batched and self.is_3d:
-            fingerprints, failed = self._scan_batched_3d(video_paths, num_workers)
+        if batched and self.family.windowed:
+            fingerprints, failed = self._scan_batched_windows(video_paths, num_workers)
         elif batched:
             fingerprints, failed = self._scan_batched(video_paths, num_workers)
         else:
@@ -605,7 +588,7 @@ class FingerprintScanner:
         fingerprints = {str(p): self._metadata(p, e) for p, e in embeddings.items()}
         return fingerprints, len(video_paths) - len(embeddings)
 
-    def _scan_batched_3d(self, video_paths: List[Path], num_workers: int):
+    def _scan_batched_windows(self, video_paths: List[Path], num_workers: int):
         """Window planner -> decode producer -> batching stage -> one
         embedding per video. A video fails when it cannot be probed, has
         fewer than 10 frames, or none of its windows decoded; otherwise it
@@ -637,9 +620,9 @@ class FingerprintScanner:
 
     def decode_windows(self, plans, num_workers: int
                        ) -> Iterator[Tuple[Tuple[Path, int], np.ndarray]]:
-        """Decode producer of the 3D scan: ((path, window index), (T, H, W, 3)
-        uint8 clip) in plan order, decoded by `_decode_ahead`. A window that
-        fails to decode is left out."""
+        """Decode producer of a windowed scan: ((path, window index), (T, H,
+        W, 3) uint8 clip of the frames the model takes) in plan order, decoded
+        by `_decode_ahead`. A window that fails to decode is left out."""
         jobs = [((path, i), start, length) for path, windows in plans if windows
                 for i, (start, length) in enumerate(windows)]
 
@@ -647,8 +630,10 @@ class FingerprintScanner:
             (path, _), start, length = job
             try:
                 if self.native_decode:
-                    return native_decode_lib.decode_clip(path, start, length,
+                    clip = native_decode_lib.decode_clip(path, start, length,
                                                          self.frame_size)
+                    offsets = self.family.frames_of(length)
+                    return clip if offsets is None else clip[offsets]
                 return self._window_clip(path, start, length, normalize=False)
             except Exception:  # one unreadable window must not end the scan
                 return None
@@ -684,17 +669,18 @@ class FingerprintScanner:
         """Batching stage: (key, (T, H, W, 3) clip) pairs -> {key: embedding},
         in the order the batches complete. Clips are uint8, or float32 in
         [0, 1] when the scanner stages float32 (`stage_dtype`: native
-        preprocess). T is 1..max_frames (attention) or 1..clip_length (3D).
+        preprocess). T is 1..max_frames (attention), 1..clip_length (3D) or
+        num_frames (TimeSformer): the family's `clip_range`.
 
-        Clips are grouped by length bucket (the scan buckets, or the 3D
-        model's stride multiples); a bucket's batch is forwarded when it
+        Clips are grouped by length bucket (the scan buckets, the 3D model's
+        stride multiples, TimeSformer's one); a bucket's batch is forwarded when it
         holds batch_size clips, and every partial batch at the end. Under
         data_parallel each shard forwards its consecutive batch_size / d
         rows of the batch (a partial batch's padding rows included)."""
         pending: Dict[int, list] = {}
         out: Dict[Hashable, np.ndarray] = {}
         shape = (self.frame_size, self.frame_size, 3)
-        limit = self.clip_length if self.is_3d else self.max_frames
+        lo, hi = self.family.clip_range
 
         def on_result(items, embs):
             for i, (key, _) in enumerate(items):
@@ -722,11 +708,10 @@ class FingerprintScanner:
                 raise ValueError(f"clip {key!r}: expected (T, {shape[0]}, {shape[1]}, "
                                  f"3) {np.dtype(self.stage_dtype).name}, got {clip.shape} "
                                  f"{clip.dtype}")
-            if not 1 <= clip.shape[0] <= limit:
+            if not lo <= clip.shape[0] <= hi:
                 raise ValueError(f"clip {key!r}: {clip.shape[0]} frames, expected "
-                                 f"1..{limit}")
-            bucket = (self._3d_bucket(clip.shape[0]) if self.is_3d
-                      else preprocess.bucket_for_length(clip.shape[0], self.buckets))
+                                 f"{lo}..{hi}")
+            bucket = self.family.bucket(clip.shape[0])
             pending.setdefault(bucket, []).append((key, clip))
             if len(pending[bucket]) >= self.batch_size:
                 flush(bucket)
@@ -822,7 +807,7 @@ class FingerprintScanner:
 
 
 def reduce_windows(embeddings: Sequence[np.ndarray], num_windows: int) -> np.ndarray:
-    """One 3D video's embedding from its windows': a single-window video's
+    """One windowed video's embedding from its windows': a single-window video's
     as the model gave it (already unit norm), else the mean over the windows
     that decoded, renormalized (fingerprint.py:300-318). The attention path
     averages its segments without renormalizing; both rules are the

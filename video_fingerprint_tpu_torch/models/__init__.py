@@ -11,8 +11,10 @@ from torch import nn
 
 from video_fingerprint_tpu_torch.models.attention import VideoFingerprintAttention
 from video_fingerprint_tpu_torch.models.cnn3d import VideoFingerprint3D
+from video_fingerprint_tpu_torch.models.timesformer import VideoFingerprintTimesformer
 
-__all__ = ["create_model", "VideoFingerprintAttention", "VideoFingerprint3D"]
+__all__ = ["create_model", "VideoFingerprintAttention", "VideoFingerprint3D",
+           "VideoFingerprintTimesformer"]
 
 
 def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
@@ -23,7 +25,12 @@ def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
     (attention), embedding_dim, frame_stride, dropout (3D), the reference's
     keys, fused (BN folded into the convs; weights from models/fuse.py) and,
     for attention, s2d (the space-to-depth first conv, off by default; with
-    fused, weights from fuse_state_dict(s2d=True)).
+    fused, weights from fuse_state_dict(s2d=True)); for "timesformer",
+    VideoFingerprintTimesformer's keyword arguments (the names of
+    `transformers`' TimesformerConfig: hidden_size, num_hidden_layers,
+    num_attention_heads, intermediate_size, image_size, patch_size,
+    num_frames, layer_norm_eps, qkv_bias; and embedding_dim, mean, std),
+    TimeSformer-Base's by default.
     """
     if model_type == "attention":
         return VideoFingerprintAttention(
@@ -41,4 +48,6 @@ def create_model(model_type: str = "attention", **kwargs) -> nn.Module:
             dropout=kwargs.get("dropout", 0.2),
             fused=kwargs.get("fused", False),
         )
+    if model_type == "timesformer":
+        return VideoFingerprintTimesformer(**kwargs)
     raise ValueError(f"Unknown model type: {model_type}")

@@ -33,6 +33,7 @@ _PAIRS = {
                      f"temporal_conv_blocks.{i}.convs.{j}.1")
                     for i in range(2) for j in range(4)],
     "3d": [(f"encoder.{i}.conv", f"encoder.{i}.bn") for i in range(4)],
+    "timesformer": [],  # LayerNorm only: nothing to fold
 }
 _PAIRS["cnn3d"] = _PAIRS["3d"]
 
@@ -63,7 +64,8 @@ def space_to_depth_kernel(k5: np.ndarray) -> np.ndarray:
 def fuse_state_dict(sd: Mapping[str, np.ndarray], model_type: str = "attention",
                     eps: float = 1e-5, s2d: bool = False) -> Dict[str, np.ndarray]:
     """Standard state_dict -> state_dict of the fused model (no BatchNorm
-    entries left), for model_type "attention", "3d" or "cnn3d"; s2d=True
+    entries left), for model_type "attention", "3d", "cnn3d" or
+    "timesformer" (which has no BatchNorm and is returned as it is); s2d=True
     (attention only) also rewrites conv0 for create_model(fused=True,
     s2d=True)."""
     if model_type not in _PAIRS:

@@ -27,7 +27,9 @@ Semantics follow video_fingerprint_tpu/ops/attention.py: scores, bias and
 softmax in f32, the bias is the finite finfo(f32).min / 2 for a masked key
 (so a fully masked row averages v instead of giving NaN), p is cast to v's
 dtype before the PV product, which accumulates in f32, and the output takes
-q's dtype. Each launch counts one `k1.launches` (utils/trace.py).
+q's dtype. Each launch counts one `k1.launches` (utils/trace.py), and the
+query rows of its blocks: `k1.rows_launched`, QUERY_TILE a query tile of
+every instance, and `k1.rows_useful`, the instances' own B * H * T.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from video_fingerprint_tpu_torch.utils import trace
 
 KERNEL_WIDTHS = (32, 64, 128)  # tile widths the kernel is instantiated for
+QUERY_TILE = 64  # query rows a block owns (kBQ in csrc/attention.cu)
 WIDE = KERNEL_WIDTHS[-1]  # the wide kernel's columns per chunk
 MASKED_BIAS = torch.finfo(torch.float32).min / 2
 
@@ -163,6 +166,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("attention kernel launch failed: "
                            + lib.vfp_error_string(err).decode())
     trace.count("k1.launches")
+    trace.count("k1.rows_launched", -(-T // QUERY_TILE) * QUERY_TILE * B * H)
+    trace.count("k1.rows_useful", B * H * T)
     return out
 
 

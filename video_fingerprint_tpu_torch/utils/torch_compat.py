@@ -13,6 +13,9 @@ and `variables_to_state_dict` pick the table by the config's model_type:
   linear  torch (O,I)        <-> flax (I,O)
   conv1d k=1 used as pointwise <-> linear
   MHA in_proj_weight (3C,C)  <-> (C,3C)
+
+TimeSformer, which the JAX package does not have, keeps its state dict
+as it is.
 """
 
 from __future__ import annotations
@@ -221,10 +224,15 @@ def cnn3d_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
 
 
 def state_dict_to_variables(sd: Mapping[str, np.ndarray], model_type: str) -> Dict:
+    """The JAX package's variables of a state dict. TimeSformer has no JAX
+    model: its variables hold the state dict as it is, under 'params', keyed
+    by `transformers`' TimesformerModel names."""
     if model_type == "attention":
         return attention_state_dict_to_variables(sd)
     if model_type in ("3d", "cnn3d"):
         return cnn3d_state_dict_to_variables(sd)
+    if model_type == "timesformer":
+        return {"params": {k: np.asarray(v) for k, v in sd.items()}, "batch_stats": {}}
     raise ValueError(f"Unknown model type: {model_type}")
 
 
@@ -233,6 +241,8 @@ def variables_to_state_dict(variables, model_type: str) -> Dict[str, np.ndarray]
         return attention_variables_to_state_dict(variables)
     if model_type in ("3d", "cnn3d"):
         return cnn3d_variables_to_state_dict(variables)
+    if model_type == "timesformer":
+        return {k: np.asarray(v) for k, v in variables["params"].items()}
     raise ValueError(f"Unknown model type: {model_type}")
 
 

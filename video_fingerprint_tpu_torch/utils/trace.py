@@ -50,14 +50,23 @@ Spans of the port, by module (benchmark/metrics/ reads them by name):
                          the exact search on a card has none
   parallel/distributed.py
     collective           one collective, with its host copies under gloo
+  models/timesformer.py
+    tsf.temporal         one layer's temporal half (LayerNorm, attention
+                         over each patch's frames, projections, residual)
+    tsf.spatial          one layer's spatial half (the frame-major copy,
+                         LayerNorm, attention over each frame's tokens,
+                         projection, the CLS mean and the residuals)
 
 Counters: `embed.frames_staged` and `embed.frames_useful` (frames of each
 staged batch, padding included, and the clips' own), `embed.fill_pooled`
 (staged batches whose fill ran on the fill pool, one a batch and shard),
-`scan.windows_reduced` and `scan.videos_reduced` (the 3D windows and the
+`scan.windows_reduced` and `scan.videos_reduced` (the windows and the
 videos `reduce_windows` took in and gave out), `k1.launches`,
-`convblock.<entry>`, `conv_int8.<entry>` (kernel launches per entry
-point), `topk.launches` (launches of the exact search's two kernels, two a
+`k1.rows_launched` and `k1.rows_useful` (K1's query rows: 64 a query tile
+of every instance launched, and the instances' own rows, B * H * T),
+`tsf.windows` (the rows of TimeSformer's forwards, padding rows of a
+partial batch included), `convblock.<entry>`, `conv_int8.<entry>` (kernel
+launches per entry point), `topk.launches` (launches of the exact search's two kernels, two a
 search), `topk.repaired_rows` (rows the certified searches repaired), and
 `stem.launches`, `stem.frames` and `stem.blocks` (K6's launches, one a bf16
 forward of the attention model on a card, the frames they took and the
